@@ -1,0 +1,361 @@
+"""Chip smoke for the PyTorch/CUDA port: builds the CUDA kernels, holds each
+against its plain PyTorch version, holds the card against the CPU on a
+small cluster, and drives the main path at the bench's headline size.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100; the kernels build for sm_90a with nvcc). Each
+phase prints one JSON line; any failure exits non-zero. The line before the
+last lists every ported kernel; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Phases:
+  device   the card's name and power limit (nvidia-smi)
+  build    nvcc of every csrc/*.cu, all started together
+  kernels  each quorum kernel against its plain version at V in {1,3,5,7},
+           N = 196,608 (one block's lanes) and a ragged N; exact equality;
+           timed at the main-path shape (V = 3) against the plain version
+  parity   a 64-group FusedCluster for 33 rounds on the card and on the CPU:
+           identical sha256 over every state, fabric and metrics leaf
+  main     BlockedFusedCluster, 1,048,576 groups x 3 voters as 16 blocks of
+           65,536 (bench.py's Shape, auto_propose, compaction lag 8,
+           round_chunk 8): warm up until every group has a leader, then 32
+           timed rounds; joint_kernel launches must equal rounds x blocks
+  profile  one round of every block under torch.profiler: CUDA kernels
+           per block-round, device time per round and its share of the
+           main phase's round time
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from raft_tpu_torch import build, interop
+from raft_tpu_torch.config import Shape
+from raft_tpu_torch.ops import quorum as qr
+from raft_tpu_torch.ops import quorum_cuda as qc
+from raft_tpu_torch.ops.fused import FusedCluster
+from raft_tpu_torch.scheduler import BlockedFusedCluster
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
+# quorum kernels' compares, selects and adds are 32-bit scalar operations
+SCALAR_OPS_PER_S = 67e12
+MAIN_GROUPS = 1 << 20
+MAIN_BLOCK_GROUPS = 1 << 16
+VOTERS = 3
+BLOCK_LANES = MAIN_BLOCK_GROUPS * VOTERS  # 196,608
+TIMED_ROUNDS = 32
+WARM_LIMIT = 40 * 16  # bench.py:76-84
+
+
+def emit(phase: str, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def bench_shape(n_lanes: int) -> Shape:
+    """bench.py:46-56 at its defaults (W=16, E=2)."""
+    return Shape(
+        n_lanes=n_lanes, max_peers=VOTERS, log_window=16, max_msg_entries=2,
+        max_inflight=2, max_read_index=2,
+    )
+
+
+def cuda_ms(fn, iters: int = 200) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- kernels against their plain versions ------------------------------------
+
+
+def quorum_inputs(rng, n: int, v: int, dev):
+    """Random acked indexes (with ties) and voter masks, including empty
+    configs (-> 2^31-1) and joint configs on about a third of the lanes."""
+    match = rng.integers(0, 64, size=(n, v), dtype=np.int32)
+    mask_in = rng.random((n, v)) < 0.7
+    mask_in[rng.random(n) < 0.05] = False
+    mask_out = (rng.random((n, v)) < 0.6) & (rng.random(n) < 0.3)[:, None]
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return t(match), t(mask_in), t(mask_out)
+
+
+def kernel_calls(match, mask_in, mask_out):
+    """name -> (kernel call, plain call) on the same inputs."""
+    n, v = match.shape
+    vm = [qc.pack_voter_major(x) for x in (match, mask_in, mask_out)]
+    return {
+        "committed_kernel": (
+            lambda: qc.committed(match, mask_in),
+            lambda: qr.majority_committed(match, mask_in),
+        ),
+        "joint_kernel": (
+            lambda: qc.joint_committed(match, mask_in, mask_out),
+            lambda: qr.joint_committed_plain(match, mask_in, mask_out),
+        ),
+        "joint_kernel_vm": (
+            lambda: qc.joint_committed_packed(*vm, v=v, n=n),
+            lambda: qr.joint_committed_plain(match, mask_in, mask_out),
+        ),
+    }
+
+
+def bytes_moved(name: str, n: int, v: int) -> int:
+    """Bytes the function must move: each input element it needs read
+    once, the int32 output written once."""
+    per_lane = {
+        "committed_kernel": 4 * v + v + 4,  # match, one bool mask, out
+        "joint_kernel": 4 * v + 2 * v + 4,  # match, two bool masks, out
+        "joint_kernel_vm": 3 * 4 * v + 4,  # V rows of three int32 operands
+    }[name]
+    return per_lane * n
+
+
+def ops_needed(name: str, n: int, v: int) -> int:
+    """Scalar operations of csrc/quorum.cu per call: for each majority half,
+    V mask tests, V masking selects, V voter-count adds, a min and a max per
+    compare-swap of the odd-even network, V selects to pick the k-th element
+    and a few for k and the empty test; the joint form adds two empty
+    selects and the min of its halves."""
+    swaps = sum(len(range(r & 1, v - 1, 2)) for r in range(v))
+    half = 4 * v + 2 * swaps + 4
+    per_lane = half + 1 if name == "committed_kernel" else 2 * half + 3
+    return per_lane * n
+
+
+def check_kernels(dev) -> dict:
+    rng = np.random.default_rng(20261016)
+    err = {name: 0 for name in qc.KERNELS}
+    cases = 0
+    for v in (1, 3, 5, 7):
+        for n in (BLOCK_LANES, 100_003):
+            calls = kernel_calls(*quorum_inputs(rng, n, v, dev))
+            for name, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"{name} v={v} n={n}: {got.shape}/{got.dtype}")
+                diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+                err[name] = max(err[name], diff)
+                cases += 1
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    # time at the main path's shape: one block's lanes, V = 3
+    calls = kernel_calls(*quorum_inputs(rng, BLOCK_LANES, VOTERS, dev))
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        b = bytes_moved(name, BLOCK_LANES, VOTERS)
+        ops = ops_needed(name, BLOCK_LANES, VOTERS)
+        bytes_ms, ops_ms = 1e3 * b / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
+        rows[name] = dict(
+            max_abs_err=err[name],
+            ms=cuda_ms(kern),
+            plain_ms=cuda_ms(plain, iters=50),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=b,
+            ops=ops,
+        )
+    emit("kernels", cases=cases, shape=[BLOCK_LANES, VOTERS], timing=rows)
+    return rows
+
+
+# -- the card against the CPU ------------------------------------------------
+
+
+def check_parity():
+    g = 64
+    leaves = {}
+    for dev in ("cuda", "cpu"):
+        c = FusedCluster(g, VOTERS, seed=11, shape=bench_shape(g * VOTERS), device=dev)
+        c.run(33, auto_propose=True, auto_compact_lag=4)
+        leaves[dev] = (
+            interop.to_numpy_leaves(c.state)
+            + interop.to_numpy_leaves(c.fab)
+            + interop.to_numpy_leaves(c.metrics)
+        )
+        leaders = len(c.leader_lanes())
+    d_gpu, d_cpu = interop.digest(leaves["cuda"]), interop.digest(leaves["cpu"])
+    emit("parity", groups=g, rounds=33, digest_cuda=d_gpu, digest_cpu=d_cpu,
+         leaders=leaders)
+    if d_gpu != d_cpu:
+        diff = [
+            i for i, (a, b) in enumerate(zip(leaves["cuda"], leaves["cpu"]))
+            if not np.array_equal(a, b)
+        ]
+        raise AssertionError(f"card and CPU diverge at leaves {diff}")
+    if leaders == 0:
+        raise AssertionError("parity cluster elected no leader in 33 rounds")
+
+
+# -- the main path -------------------------------------------------------------
+
+
+def run_main(dev):
+    lag = 8
+    qc.reset_launches()
+    t0 = time.perf_counter()
+    c = BlockedFusedCluster(
+        MAIN_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS, seed=42,
+        shape=bench_shape(BLOCK_LANES), round_chunk=8, device=dev,
+    )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rounds = 0
+    t0 = time.perf_counter()
+    while True:  # bench.py: one block of 32 rounds, then until all elected
+        c.run(32, auto_propose=True, auto_compact_lag=lag)
+        rounds += 32
+        if c.leader_count() == MAIN_GROUPS:
+            break
+        if rounds > WARM_LIMIT:
+            raise RuntimeError(
+                f"warm-up stalled: {c.leader_count()}/{MAIN_GROUPS} after {rounds} rounds"
+            )
+    warm_s = time.perf_counter() - t0
+    com0 = c.total_committed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c.run(TIMED_ROUNDS, auto_propose=True, auto_compact_lag=lag)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds += TIMED_ROUNDS
+    launches = {name: k.launches for name, k in qc.KERNELS.items()}
+    commits = c.total_committed() - com0
+    c.check_no_errors()
+    snap = c.metrics_snapshot()
+    leaders = c.leader_count()
+    expect = rounds * c.k
+    emit(
+        "main",
+        groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k, block_groups=MAIN_BLOCK_GROUPS,
+        setup_s=setup_s, warm_rounds=rounds - TIMED_ROUNDS, warm_s=warm_s,
+        timed_rounds=TIMED_ROUNDS, timed_s=dt,
+        groups_ticks_per_s=MAIN_GROUPS * TIMED_ROUNDS / dt,
+        round_ms=1e3 * dt / TIMED_ROUNDS,
+        commits_per_group_round=commits / (MAIN_GROUPS * VOTERS * TIMED_ROUNDS),
+        leaders=leaders, check_no_errors=True,
+        metrics={k: v for k, v in snap["counters"].items() if v},
+        launches=launches, joint_kernel_expected=expect,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    if leaders != MAIN_GROUPS or commits <= 0:
+        raise AssertionError(f"main path: {leaders} leaders, {commits} commits")
+    if launches["joint_kernel"] != expect:
+        raise AssertionError(
+            f"joint_kernel launched {launches['joint_kernel']} times, expected {expect}"
+        )
+    return c, launches, 1e3 * dt / TIMED_ROUNDS
+
+
+def _device_us(e) -> float:
+    return e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+
+
+def profile_round(c, round_ms: float):
+    """One round of every block under the profiler: CUDA kernels per
+    block-round, device time per round, and its share of the unprofiled
+    round time of the main phase (the profiler's own wall time is inflated
+    by tracing every launch, so it is reported but not used)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        c.run(1, auto_propose=True, auto_compact_lag=8)
+        torch.cuda.synchronize()
+    profiled_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit(
+        "profile", profiled_wall_ms=profiled_ms, round_ms=round_ms,
+        device_busy_ms=busy_ms, device_busy_share=busy_ms / round_ms,
+        cuda_kernels_per_block_round=len(kernels) / c.k,
+        top_kernels_us=[[name[:100], t] for name, t in top],
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    built = build.build(*sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    emit(
+        "build", seconds=time.perf_counter() - t0,
+        ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
+               if "registers" in ln or "spill" in ln],
+    )
+
+    timing = check_kernels(dev)
+    check_parity()
+    c, launches, round_ms = run_main(dev)
+    profile_round(c, round_ms)
+
+    replaces = {
+        "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
+        "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
+        "joint_kernel_vm": "raft_tpu/ops/quorum_pallas.py:120",
+    }
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "raft_tpu_torch/csrc/quorum.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": timing[name]["max_abs_err"],
+            "ms": timing[name]["ms"],
+            "plain_ms": timing[name]["plain_ms"],
+            "bound_ms": timing[name]["bound_ms"],
+            "bound_by": timing[name]["bound_by"],
+            # no single PyTorch call computes a (joint) quorum commit index
+            "library_ms": None,
+        }
+        for name in qc.KERNELS
+    ]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""Build the port's CUDA sources into shared libraries with a plain C
+interface, and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) on first
+use into `csrc/build/<name>-<hash>.so`, keyed by a hash of the source and
+the flags, so an edited source rebuilds and an unchanged one is reused.
+`build` starts one `nvcc` per source, all at once, and waits for them
+together. Nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    name: str
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas register/spill report), "" when reused
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(*names: str) -> dict[str, Built]:
+    """Compile every named source that has no current library, all in
+    parallel. Raises with nvcc's output if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    out = {}
+    for name in names:
+        dst = library_path(name)
+        if dst.exists():
+            out[name] = Built(name, dst, 0.0, "")
+            continue
+        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[name] = (proc, dst, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, dst, tmp, t0) in jobs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            continue
+        os.replace(tmp, dst)  # atomic: concurrent builds race safely
+        out[name] = Built(name, dst, secs, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)[name].path))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,85 @@
+"""The port on a CUDA card: the hand-written kernels against their plain
+PyTorch versions, and the fused round on the card against the CPU.
+
+Every test here is marked `cuda` and skips without a card. The file
+imports neither JAX nor `raft_tpu`, so it runs on a machine that has only
+PyTorch; there, without the repo's conftest (which imports JAX):
+
+    python -m pytest --noconftest -o addopts= -p no:cacheprovider -q tests/test_torch_cuda.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch import interop
+from raft_tpu_torch.config import Shape
+from raft_tpu_torch.ops import quorum as tq
+from raft_tpu_torch.ops import quorum_cuda as tqc
+from raft_tpu_torch.ops.fused import FusedCluster
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _inputs(v: int, n: int, dev):
+    """Acked indexes with ties, ~5% empty incoming configs, joint configs on
+    ~30% of the lanes."""
+    rng = np.random.default_rng(1000 + v)
+    match = rng.integers(0, 16, size=(n, v), dtype=np.int32)
+    mask_in = rng.random((n, v)) < 0.7
+    mask_in[rng.random(n) < 0.05] = False
+    mask_out = (rng.random((n, v)) < 0.6) & (rng.random(n) < 0.3)[:, None]
+    return [torch.from_numpy(x).to(dev) for x in (match, mask_in, mask_out)]
+
+
+@pytest.mark.parametrize("v", [1, 3, 5, 7, 8])
+def test_cuda_kernels_equal_plain(card, v):
+    match, mask_in, mask_out = _inputs(v, 196_608 + 7, card)
+    n = match.shape[0]
+    before = {k: q.launches for k, q in tqc.KERNELS.items()}
+    assert torch.equal(tqc.committed(match, mask_in), tq.majority_committed(match, mask_in))
+    want = tq.joint_committed_plain(match, mask_in, mask_out)
+    assert torch.equal(tqc.joint_committed(match, mask_in, mask_out), want)
+    vm = [tqc.pack_voter_major(x) for x in (match, mask_in, mask_out)]
+    assert torch.equal(tqc.joint_committed_packed(*vm, v=v, n=n), want)
+    torch.cuda.synchronize()
+    assert all(q.launches == before[k] + 1 for k, q in tqc.KERNELS.items())
+
+
+def test_cuda_wrapper_rejects_wide_groups(card):
+    match, mask_in, mask_out = _inputs(8, 64, card)
+    wide = torch.cat([match, match[:, :1]], dim=1)
+    wide_mask = torch.cat([mask_in, mask_in[:, :1]], dim=1)
+    with pytest.raises(ValueError, match="V <= 8"):
+        tqc.joint_committed(wide, wide_mask, wide_mask)
+
+
+def test_round_on_card_matches_cpu(card):
+    """Default device is the card; 24 rounds of 16 groups land on the same
+    sha256 over every state, fabric and metrics leaf as the CPU run, and
+    the commit index went through the joint kernel once per round."""
+    shape = Shape(n_lanes=48, max_peers=3, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    digests = {}
+    for dev in (None, "cpu"):
+        c = FusedCluster(16, 3, seed=9, shape=shape, device=dev)
+        before = tqc.KERNELS["joint_kernel"].launches
+        c.run(24, auto_propose=True, auto_compact_lag=4)
+        launched = tqc.KERNELS["joint_kernel"].launches - before
+        assert launched == (24 if dev is None else 0)
+        assert c.state.term.device.type == ("cuda" if dev is None else "cpu")
+        digests[dev] = interop.digest(
+            interop.to_numpy_leaves(c.state)
+            + interop.to_numpy_leaves(c.fab)
+            + interop.to_numpy_leaves(c.metrics)
+        )
+    assert digests[None] == digests["cpu"]
