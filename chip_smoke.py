@@ -24,6 +24,25 @@ Phases:
   profile  one round of every block under torch.profiler: CUDA kernels
            per block-round, device time per round and its share of the
            main phase's round time
+  round_kernel   the round megakernel (csrc/round.cu) against its plain
+           version round_kernel_ref on the card: V in {3,5} x K in {1,4} x
+           two seeds, 9 rounds as pallas_rounds launches them (K=4: two
+           full launches and a remainder), a muted lane and injected
+           hup/propose/ReadIndex/transfer ops; sha256 over every carry leaf
+           and partials row after each launch, naming the first differing
+           leaf
+  parity_pallas  engine="pallas" on the card against the eager CPU path,
+           64 groups x 33 rounds, at K=1 and K=3: identical digests
+  main_pallas    the main phase's cluster on engine="pallas" at K=1 and
+           K=8: groups-ticks/s, round_ms, commits per group-round (1.0),
+           every group elected, check_no_errors, peak memory; round_kernel
+           launches must equal rounds x blocks / K and joint_kernel must
+           not launch; then one launch at the main path's shape (block 0's
+           carry) against its plain version, timed with CUDA events beside
+           the plain version and the bound
+  profile_pallas one K=1 round of every block under torch.profiler: CUDA
+           kernels per block-round, device busy share, the megakernel's
+           share of the device time
 """
 
 from __future__ import annotations
@@ -38,8 +57,10 @@ import torch
 
 from raft_tpu_torch import build, interop
 from raft_tpu_torch.config import Shape
+from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import quorum as qr
 from raft_tpu_torch.ops import quorum_cuda as qc
+from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.ops.fused import FusedCluster
 from raft_tpu_torch.scheduler import BlockedFusedCluster
 
@@ -210,14 +231,15 @@ def check_parity():
 # -- the main path -------------------------------------------------------------
 
 
-def run_main(dev):
+def run_main(dev, phase="main", **engine):
     lag = 8
-    qc.reset_launches()
     t0 = time.perf_counter()
     c = BlockedFusedCluster(
         MAIN_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS, seed=42,
-        shape=bench_shape(BLOCK_LANES), round_chunk=8, device=dev,
+        shape=bench_shape(BLOCK_LANES), round_chunk=8, device=dev, **engine,
     )
+    qc.reset_launches()
+    rc.reset_launches()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rounds = 0
@@ -239,14 +261,16 @@ def run_main(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rounds += TIMED_ROUNDS
-    launches = {name: k.launches for name, k in qc.KERNELS.items()}
+    launches = {name: k.launches for name, k in {**qc.KERNELS, **rc.KERNELS}.items()}
     commits = c.total_committed() - com0
     c.check_no_errors()
     snap = c.metrics_snapshot()
     leaders = c.leader_count()
-    expect = rounds * c.k
+    k = engine.get("rounds_per_call", 1)
+    pallas = engine.get("engine") == "pallas"
+    expect = rounds * c.k // k
     emit(
-        "main",
+        phase, **engine,
         groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k, block_groups=MAIN_BLOCK_GROUPS,
         setup_s=setup_s, warm_rounds=rounds - TIMED_ROUNDS, warm_s=warm_s,
         timed_rounds=TIMED_ROUNDS, timed_s=dt,
@@ -255,23 +279,178 @@ def run_main(dev):
         commits_per_group_round=commits / (MAIN_GROUPS * VOTERS * TIMED_ROUNDS),
         leaders=leaders, check_no_errors=True,
         metrics={k: v for k, v in snap["counters"].items() if v},
-        launches=launches, joint_kernel_expected=expect,
+        launches=launches, expected_launches=expect,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
     if leaders != MAIN_GROUPS or commits <= 0:
-        raise AssertionError(f"main path: {leaders} leaders, {commits} commits")
-    if launches["joint_kernel"] != expect:
-        raise AssertionError(
-            f"joint_kernel launched {launches['joint_kernel']} times, expected {expect}"
-        )
+        raise AssertionError(f"{phase}: {leaders} leaders, {commits} commits")
+    if pallas and commits != MAIN_GROUPS * VOTERS * TIMED_ROUNDS:
+        raise AssertionError(f"{phase}: commits per group-round is not 1.0")
+    want = {"round_kernel": expect, "joint_kernel": 0} if pallas else {"joint_kernel": expect}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {launches[name]} times, expected {n}")
     return c, launches, 1e3 * dt / TIMED_ROUNDS
+
+
+# -- the round megakernel ------------------------------------------------------
+
+
+def carry_leaves(st, fb, samp, parts) -> list:
+    """(name, numpy leaf) of one launch's outputs, in packing order."""
+    names = rc.dataclass_names()
+    out = [("state." + n, x) for n, x in zip(names["STATE"], interop.to_numpy_leaves(st))]
+    out += [("fabric." + n, x) for n, x in zip(names["FABRIC"], interop.to_numpy_leaves(fb))]
+    if samp is not None:
+        out += [("samp_index", samp[0].cpu().numpy()), ("samp_round", samp[1].cpu().numpy()),
+                ("partials", parts.cpu().numpy())]
+    return out
+
+
+def first_difference(a, b) -> str | None:
+    for (name, x), (_, y) in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            return name
+    return None
+
+
+def launch_pair(c, ops, k, first, *, cta, mute):
+    """One launch of the kernel and of its plain version on the same card
+    inputs (c's carry); returns both results."""
+    m = c.metrics
+    kw = dict(v=c.v, kc=k, cta=cta, apply_ops=first, ops_round0_only=True,
+              do_tick=True, auto_propose=True, auto_compact_lag=4)
+    args = (c.state, c.fab, ops, mute, (m.samp_index, m.samp_round), m.round_ctr)
+    return rc.round_call(*args, **kw), plr.round_kernel_ref(*args, **kw)
+
+
+def check_round_kernel(dev):
+    """The kernel against round_kernel_ref over 9 rounds per case, launched
+    as pallas_rounds launches them; raises naming the first differing leaf."""
+    cases = 0
+    for v in (3, 5):
+        for k in (1, 4):
+            for seed in (5, 17):
+                g = 16
+                c = FusedCluster(g, v, seed=seed, device=dev, shape=Shape(
+                    n_lanes=g * v, max_peers=v, log_window=16, max_msg_entries=2,
+                    max_inflight=2, max_read_index=2))
+                c.run(12, auto_propose=True, auto_compact_lag=4)  # eager warm-up
+                c.set_mute([v + 1])
+                n = g * v
+                ops = c.ops(hup={0: True, 2 * v: True}, prop_n={1: 2, v: 1}, prop_bytes=7,
+                            read_ctx={i: 100 + i for i in range(n)},
+                            transfer_to={i: (i % v) + 1 for i in range(3 * v, 5 * v)})
+                plan = [k] * (9 // k) + ([9 % k] if 9 % k else [])
+                for i, kc in enumerate(plan):
+                    got, want = launch_pair(c, ops, kc, i == 0, cta=2 * v, mute=c.mute)
+                    torch.cuda.synchronize()
+                    a, b = carry_leaves(*got), carry_leaves(*want)
+                    bad = first_difference(a, b)
+                    if bad is not None or interop.digest([x for _, x in a]) != interop.digest(
+                        [x for _, x in b]
+                    ):
+                        raise AssertionError(
+                            f"round_kernel v={v} K={k} seed={seed} launch {i}: "
+                            f"first differing leaf {bad}"
+                        )
+                    c.state, c.fab = got[0], got[1]
+                    c.metrics = plr.fold_partials(c.metrics, got[2], got[3], kc)
+                    cases += 1
+    emit("round_kernel", launches_compared=cases, cases="V{3,5} x K{1,4} x seeds{5,17}",
+         rounds_per_case=9, max_abs_err=0)
+
+
+def check_parity_pallas():
+    g = 64
+    out = {}
+    for k in (1, 3):
+        digests = {}
+        for dev, engine in (("cuda", dict(engine="pallas", rounds_per_call=k)), ("cpu", {})):
+            c = FusedCluster(g, VOTERS, seed=11, shape=bench_shape(g * VOTERS), device=dev, **engine)
+            c.run(33, auto_propose=True, auto_compact_lag=4)
+            digests[dev] = interop.digest(
+                interop.to_numpy_leaves(c.state) + interop.to_numpy_leaves(c.fab)
+                + interop.to_numpy_leaves(c.metrics)
+            )
+        out[f"K{k}"] = digests
+        if digests["cuda"] != digests["cpu"]:
+            raise AssertionError(f"parity_pallas K={k}: card {digests['cuda']} != cpu {digests['cpu']}")
+    emit("parity_pallas", groups=g, rounds=33, digests=out)
+
+
+def round_bytes(args, outputs) -> int:
+    """Bytes one launch must move: every input leaf read once, every output
+    leaf written once (cfg is read; the output state shares it)."""
+    st, fb, ops, mute, samp, ctr = args
+    ins = (interop.to_numpy_leaves(st) + interop.to_numpy_leaves(fb)
+           + interop.to_numpy_leaves(ops) + [mute.cpu().numpy()]
+           + [x.cpu().numpy() for x in samp] + [ctr.cpu().numpy()])
+    ost, ofb, osamp, parts = outputs
+    outs = ([x for _, x in carry_leaves(ost, ofb, osamp, parts)])
+    return sum(x.nbytes for x in ins) + sum(x.nbytes for x in outs)
+
+
+def round_ops(n: int, v: int, w: int, e: int, f: int, r: int) -> int:
+    """An estimate of the integer operations of one round per lane, from the
+    loops of csrc/round.cu: each leaf element widened and narrowed; the
+    window scans (find_conflict_by_term once per peer and once for the
+    follower, bytes_between, has_unapplied_conf_changes, about 6 operations
+    per slot); about 150 per peer cell over the fan-in and fan-out; the
+    ReadIndex ack tally (R x V hits and the R x R rank); and about 300
+    scalar ones."""
+    elems = (30 + 3 * w + 15 * v + 2 * v * f + 9 * r + r * v) + (26 * v + 3 * v * e + 3)
+    per_lane = 2 * elems + (v + 1) * w * 6 + 2 * w * 6 + 150 * v + 6 * r * v + 7 * r * r + 300
+    return per_lane * n
+
+
+def time_round_kernel(c):
+    """One launch at the main path's shape (block 0's carry) against its
+    plain version; the kernel and the plain version timed on it."""
+    b = c.blocks[0]
+    shape = b.shape
+    cta = rc.cta_lanes(b._pallas_tile, b.v)
+    m = b.metrics
+    args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    kw = dict(v=b.v, kc=1, cta=cta, apply_ops=True, ops_round0_only=True,
+              do_tick=True, auto_propose=True, auto_compact_lag=8)
+    got = rc.round_call(*args, **kw)
+    want = plr.round_kernel_ref(*args, **kw)
+    torch.cuda.synchronize()
+    a, bb = carry_leaves(*got), carry_leaves(*want)
+    bad = first_difference(a, bb)
+    if bad is not None:
+        raise AssertionError(f"round_kernel at the main path's shape: first differing leaf {bad}")
+    nbytes = round_bytes(args, got)
+    ops = round_ops(shape.n_lanes, b.v, shape.log_window, shape.max_msg_entries,
+                    shape.max_inflight, shape.max_read_index)
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
+    # the kernel alone: the arguments packed once, raw launches (the
+    # wrapper's per-call packing, about a millisecond of host time, would
+    # otherwise set the pace); the wrapper's own rate is reported beside it
+    ptrs, dims, flags, lag, outs, scratch = rc.pack(*args, **kw)
+    arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+    kern = rc.KERNELS["round_kernel"]
+    row = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: kern.launch(b.state.term.device, arr, nptr, cdims, flags, lag),
+                   iters=50),
+        wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw), iters=20),
+        plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw), iters=3),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, ops=ops, cta_lanes=cta, lanes=shape.n_lanes,
+    )
+    del outs, scratch  # the launches above wrote these; cuda_ms synchronized
+    emit("round_kernel_timing", **row)
+    return row
 
 
 def _device_us(e) -> float:
     return e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
 
 
-def profile_round(c, round_ms: float):
+def profile_round(c, round_ms: float, phase: str = "profile"):
     """One round of every block under the profiler: CUDA kernels per
     block-round, device time per round, and its share of the unprofiled
     round time of the main phase (the profiler's own wall time is inflated
@@ -290,12 +469,16 @@ def profile_round(c, round_ms: float):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    mega_us = sum(t for name, t in by_name.items() if "round_kernel" in name)
     emit(
-        "profile", profiled_wall_ms=profiled_ms, round_ms=round_ms,
+        phase, profiled_wall_ms=profiled_ms, round_ms=round_ms,
         device_busy_ms=busy_ms, device_busy_share=busy_ms / round_ms,
         cuda_kernels_per_block_round=len(kernels) / c.k,
+        round_kernel_share=mega_us / 1e3 / busy_ms if busy_ms else 0.0,
         top_kernels_us=[[name[:100], t] for name, t in top],
     )
+    if not kernels:
+        raise AssertionError(f"{phase}: the profiler saw no CUDA kernel")
 
 
 def main() -> int:
@@ -321,17 +504,30 @@ def main() -> int:
     check_parity()
     c, launches, round_ms = run_main(dev)
     profile_round(c, round_ms)
+    del c
+    torch.cuda.empty_cache()
+
+    check_round_kernel(dev)
+    check_parity_pallas()
+    c8, launches8, _ = run_main(dev, "main_pallas", engine="pallas", rounds_per_call=8)
+    del c8
+    c1, launches1, round_ms1 = run_main(dev, "main_pallas", engine="pallas", rounds_per_call=1)
+    timing["round_kernel"] = time_round_kernel(c1)
+    profile_round(c1, round_ms1, "profile_pallas")
+    launches["round_kernel"] = launches1["round_kernel"]
 
     replaces = {
         "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
         "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
         "joint_kernel_vm": "raft_tpu/ops/quorum_pallas.py:120",
+        "round_kernel": "raft_tpu/ops/pallas_round.py:564",
     }
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": "raft_tpu_torch/csrc/quorum.cu",
+            "source": "raft_tpu_torch/csrc/"
+            + ("round.cu" if name == "round_kernel" else "quorum.cu"),
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": timing[name]["max_abs_err"],
@@ -340,9 +536,10 @@ def main() -> int:
             "bound_ms": timing[name]["bound_ms"],
             "bound_by": timing[name]["bound_by"],
             # no single PyTorch call computes a (joint) quorum commit index
+            # or a raft round
             "library_ms": None,
         }
-        for name in qc.KERNELS
+        for name in replaces
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

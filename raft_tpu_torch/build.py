@@ -3,7 +3,8 @@ interface, and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) on first
 use into `csrc/build/<name>-<hash>.so`, keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+the flags and of the shared headers (`csrc/*.cuh`), so an edited source
+or header rebuilds and an unchanged one is reused.
 `build` starts one `nvcc` per source, all at once, and waits for them
 together. Nothing is built when this module is imported.
 """
@@ -47,7 +48,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

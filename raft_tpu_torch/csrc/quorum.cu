@@ -13,6 +13,9 @@
 // the joint min. The joint form runs both halves over one match row and
 // takes their min.
 //
+// The per-lane reduction, reduce_half<V>, lives in quorum.cuh, shared with
+// the round kernel (round.cu).
+//
 // Design. One thread per lane. V is a template parameter (1..8), so the
 // network unrolls fully and the V values live in registers; nothing is
 // staged in shared memory because nothing is reused across lanes. The
@@ -30,43 +33,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quorum.cuh"
+
 namespace {
 
-constexpr int kCommittedInf = 2147483647;
-constexpr int kThreads = 256;
+using raft::kCommittedInf;
+using raft::reduce_half;
 
-// One majority half: (committed, empty) of V acked indexes under a mask.
-template <int V>
-__device__ __forceinline__ void reduce_half(const int (&match)[V],
-                                            const bool (&mask)[V],
-                                            int &committed, bool &empty) {
-  int r[V];
-  int n = 0;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    r[j] = mask[j] ? match[j] : -1;
-    n += mask[j] ? 1 : 0;
-  }
-  // odd-even transposition network (quorum_pallas._sorted_cols:60-69)
-#pragma unroll
-  for (int rnd = 0; rnd < V; ++rnd) {
-#pragma unroll
-    for (int j = rnd & 1; j < V - 1; j += 2) {
-      const int lo = min(r[j], r[j + 1]);
-      const int hi = max(r[j], r[j + 1]);
-      r[j] = lo;
-      r[j + 1] = hi;
-    }
-  }
-  // V - n pad values of -1 sort to the front, so position V - q is the
-  // reference's n - q
-  const int k = V - (n / 2 + 1);
-  int picked = 0;
-#pragma unroll
-  for (int j = 0; j < V; ++j) picked = (k == j) ? r[j] : picked;
-  committed = picked;
-  empty = (n == 0);
-}
+constexpr int kThreads = 256;
 
 template <int V>
 __global__ void committed_kernel(const int *__restrict__ match,
@@ -139,19 +113,6 @@ inline unsigned blocks_for(long long n) {
 }
 
 }  // namespace
-
-#define RAFT_V_SWITCH(v, LAUNCH) \
-  switch (v) {                   \
-    case 1: LAUNCH(1); break;    \
-    case 2: LAUNCH(2); break;    \
-    case 3: LAUNCH(3); break;    \
-    case 4: LAUNCH(4); break;    \
-    case 5: LAUNCH(5); break;    \
-    case 6: LAUNCH(6); break;    \
-    case 7: LAUNCH(7); break;    \
-    case 8: LAUNCH(8); break;    \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 // Each entry launches on `stream` and returns cudaGetLastError(); n >= 1.
 extern "C" int raft_committed(const void *match, const void *mask, void *out,

@@ -80,14 +80,30 @@ class EventBag:
             raise KeyError(f"unknown counter {name!r}")
         self._events.setdefault(name, []).append(mask_or_count)
 
-    def reduce(self, device) -> torch.Tensor:
+    def reduce(self, device, rows: int | None = None) -> torch.Tensor:
+        """[K] deltas, or [rows, K] when the lanes split into `rows` equal
+        runs (one per CUDA block of the round kernel)."""
         parts = []
         for name in COUNTERS:
-            total = torch.zeros((), dtype=I32, device=device)
+            total = torch.zeros(() if rows is None else (rows,), dtype=I32, device=device)
             for t in self._events.get(name, ()):
-                total = total + t.sum(dtype=I32)
+                total = total + lane_sum(t, rows)
             parts.append(total)
-        return torch.stack(parts)
+        return torch.stack(parts, dim=-1)
+
+
+def lane_sum(x, rows: int | None = None):
+    """int32 sum of a lane-leading tensor: a scalar, or one sum per run of
+    lanes when `rows` splits the lanes into equal runs."""
+    if rows is None:
+        return x.sum(dtype=I32)
+    return x.reshape(rows, -1).sum(dim=1, dtype=I32)
+
+
+def _rows(metrics: "MetricsState") -> int | None:
+    """Row count of a per-run metrics carry (counters [rows, K]); None for
+    the usual lane-reduced carry (counters [K])."""
+    return metrics.counters.shape[0] if metrics.counters.dim() == 2 else None
 
 
 def bucket_index(lat):
@@ -101,7 +117,9 @@ def bucket_index(lat):
 def observe_commit_latency(metrics: MetricsState, state) -> MetricsState:
     """End-of-round sampler update: complete the samples whose index
     committed. round_ctr is the pre-increment value, so a propose+commit
-    within one round measures 1."""
+    within one round measures 1. A per-run carry (counters [rows, K]) keeps
+    hist and lat_sum per run too."""
+    rows = _rows(metrics)
     now = metrics.round_ctr + 1
     live = metrics.samp_index > 0
     done = live & (state.committed >= metrics.samp_index)
@@ -110,8 +128,9 @@ def observe_commit_latency(metrics: MetricsState, state) -> MetricsState:
     oh = (bucket_index(lat)[:, None] == buckets[None, :]) & done[:, None]
     return dataclasses.replace(
         metrics,
-        hist=metrics.hist + oh.sum(dim=0, dtype=I32),
-        lat_sum=metrics.lat_sum + lat.sum(dtype=I32),
+        hist=metrics.hist
+        + (oh if rows is None else oh.reshape(rows, -1, N_BUCKETS)).sum(dim=-2, dtype=I32),
+        lat_sum=metrics.lat_sum + lane_sum(lat, rows),
         samp_index=torch.where(done, 0, metrics.samp_index),
     )
 
@@ -130,7 +149,7 @@ def commit_round(metrics: MetricsState, bag: EventBag) -> MetricsState:
     """Fold the round's event bag into the carry; advance the round counter."""
     return dataclasses.replace(
         metrics,
-        counters=metrics.counters + bag.reduce(metrics.counters.device),
+        counters=metrics.counters + bag.reduce(metrics.counters.device, _rows(metrics)),
         round_ctr=metrics.round_ctr + 1,
     )
 

@@ -1096,7 +1096,11 @@ class FusedCluster:
     passes another `device` (`device="cpu"` runs the plain PyTorch path).
 
     metrics: keep the device metrics plane (on by default, as in the JAX
-    package). **cfg: LaneConfig overrides (election_tick, pre_vote, ...)."""
+    package). engine: "xla" (default: the eager round of this module) or
+    "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
+    kernel; tile_lanes, default pallas_round.default_tile, and
+    rounds_per_call K, default 1, are checked here and raise TileError /
+    ValueError). **cfg: LaneConfig overrides (election_tick, pre_vote, ...)."""
 
     def __init__(
         self,
@@ -1108,8 +1112,13 @@ class FusedCluster:
         *,
         device=None,
         metrics: bool = True,
+        engine: str | None = None,
+        tile_lanes: int | None = None,
+        rounds_per_call: int | None = None,
         **cfg,
     ):
+        from raft_tpu_torch.ops import pallas_round as plr
+
         for plane in PLANES_NOT_PORTED:
             if cfg.get(plane):
                 raise NotImplementedError(
@@ -1145,6 +1154,13 @@ class FusedCluster:
         self._no_ops = no_ops(n, self.device)
         self.metrics = metmod.init_metrics(n, self.device) if metrics else None
         self._metrics_acc = CounterAccumulator() if metrics else None
+        # round engine, resolved once here; a failing pallas launch raises
+        # (no fallback to "xla")
+        self.engine = plr.resolve_engine(engine)
+        self._pallas_tile = self._pallas_rounds = None
+        if self.engine == "pallas":
+            self._pallas_rounds = self._resolve_pallas_rounds(rounds_per_call)
+            self._pallas_tile = self._resolve_pallas_tile(tile_lanes)
 
     def run(
         self,
@@ -1155,11 +1171,7 @@ class FusedCluster:
         auto_compact_lag: int | None = None,
         ops_first_round_only: bool = True,
     ):
-        res = fused_rounds(
-            self.state,
-            self.fab,
-            self._no_ops if ops is None else ops,
-            self.mute,
+        kw = dict(
             v=self.v,
             n_rounds=rounds,
             do_tick=do_tick,
@@ -1168,9 +1180,43 @@ class FusedCluster:
             ops_first_round_only=ops_first_round_only,
             metrics=self.metrics,
         )
+        ops = self._no_ops if ops is None else ops
+        if self.engine == "pallas":
+            res = self._run_pallas(ops, **kw)
+        else:
+            res = fused_rounds(self.state, self.fab, ops, self.mute, **kw)
         self.state, self.fab = res[0], res[1]
         if self.metrics is not None:
             self.metrics = res[2]
+
+    # -- pallas engine (ops/pallas_round.py) ------------------------------
+
+    def _run_pallas(self, ops, **kw):
+        """One dispatch on the round kernel: ceil(rounds / K) launches."""
+        from raft_tpu_torch.ops import pallas_round as plr
+
+        return plr.pallas_rounds(
+            self.state, self.fab, ops, self.mute, tile_lanes=self._pallas_tile,
+            rounds_per_call=self._pallas_rounds, **kw,
+        )
+
+    def _resolve_pallas_tile(self, tile_lanes: int | None) -> int:
+        """The lane tile: tile_lanes, else default_tile; TileError if it
+        breaks the group alignment."""
+        from raft_tpu_torch.ops import pallas_round as plr
+
+        n = self.shape.n_lanes
+        t = tile_lanes if tile_lanes is not None else plr.default_tile(n, self.v)
+        plr.check_tile(n, self.v, t)
+        return t
+
+    def _resolve_pallas_rounds(self, rounds_per_call: int | None) -> int:
+        """K: rounds_per_call, else 1; ValueError if out of range."""
+        from raft_tpu_torch.ops import pallas_round as plr
+
+        k = rounds_per_call if rounds_per_call is not None else 1
+        plr.validate_round_plan(k)
+        return k
 
     def ops(self, **kw) -> LocalOps:
         """A LocalOps with the given per-lane columns set ({lane: value}

@@ -34,18 +34,19 @@ _N = ctypes.c_longlong
 
 
 class Kernel:
-    """One C entry point of csrc/quorum.cu and its launch count."""
+    """One C entry point of csrc/<lib>.cu and its launch count."""
 
-    def __init__(self, name: str, symbol: str, argtypes):
+    def __init__(self, name: str, symbol: str, argtypes, lib: str = "quorum"):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.lib = lib
         self.launches = 0
         self._fn = None
 
     def launch(self, device: torch.device, *args):
         if self._fn is None:
-            fn = getattr(build.load("quorum"), self.symbol)
+            fn = getattr(build.load(self.lib), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

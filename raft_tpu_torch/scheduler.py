@@ -15,6 +15,7 @@ import torch
 
 from raft_tpu_torch.config import Shape, resolve_device
 from raft_tpu_torch.metrics.host import merge_snapshots
+from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops.fused import FusedCluster, LocalOps, make_local_ops
 from raft_tpu_torch.types import StateType
 
@@ -22,7 +23,8 @@ from raft_tpu_torch.types import StateType
 class BlockedFusedCluster:
     """The driving API mirrors FusedCluster; per-lane injections address
     lanes in global order (block i owns lanes [i*B*V, (i+1)*B*V)). Runs on
-    `cuda` unless `device` names another device."""
+    `cuda` unless `device` names another device. engine / tile_lanes /
+    rounds_per_call pass through to every block (FusedCluster)."""
 
     def __init__(
         self,
@@ -41,6 +43,12 @@ class BlockedFusedCluster:
             raise ValueError("n_groups must be a multiple of block_groups")
         if round_chunk < 1:
             raise ValueError("round_chunk must be >= 1")
+        # the pallas engine's K must divide round_chunk, or every chunk ends
+        # in a remainder launch (raft_tpu/scheduler.py:91-101)
+        if plr.resolve_engine(cfg.get("engine")) == "pallas":
+            k = cfg.get("rounds_per_call")
+            if k is not None:
+                plr.validate_round_plan(k, round_chunk=round_chunk)
         self.device = resolve_device(device)
         self.g, self.v = n_groups, n_voters
         self.block_groups = block_groups

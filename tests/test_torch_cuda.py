@@ -83,3 +83,41 @@ def test_round_on_card_matches_cpu(card):
             + interop.to_numpy_leaves(c.metrics)
         )
     assert digests[None] == digests["cpu"]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_round_kernel_equals_plain(card, k):
+    """The round megakernel (csrc/round.cu) against round_kernel_ref on the
+    same card inputs: a warmed 32-group cluster with a muted lane and
+    injected ops, one launch of k rounds; names the first differing leaf."""
+    from raft_tpu_torch.ops import pallas_round as plr
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    v, g = 3, 32
+    shape = Shape(n_lanes=g * v, max_peers=v, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    c = FusedCluster(g, v, seed=4, shape=shape)
+    c.run(20, auto_propose=True, auto_compact_lag=4)
+    c.set_mute([5])
+    ops = c.ops(hup={0: True}, prop_n={1: 2}, prop_bytes=3,
+                read_ctx={i: 9 + i for i in range(g * v)}, transfer_to={3: 2})
+    m = c.metrics
+    args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    kw = dict(v=v, kc=k, cta=2 * v, do_tick=True, auto_propose=True, auto_compact_lag=4)
+    before = rc.KERNELS["round_kernel"].launches
+    got = rc.round_call(*args, **kw)
+    want = plr.round_kernel_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert rc.KERNELS["round_kernel"].launches == before + 1
+    names = rc.dataclass_names()
+    labels = ["state." + x for x in names["STATE"]] + ["fabric." + x for x in names["FABRIC"]]
+    labels += ["samp_index", "samp_round", "partials"]
+
+    def leaves(res):
+        st, fb, samp, parts = res
+        return (interop.to_numpy_leaves(st)[: len(names["STATE"])]
+                + interop.to_numpy_leaves(fb) + [samp[0].cpu().numpy(),
+                                                 samp[1].cpu().numpy(), parts.cpu().numpy()])
+
+    for name, a, b in zip(labels, leaves(got), leaves(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b), f"first differing leaf: {name}"

@@ -1,0 +1,273 @@
+"""The port's pallas engine on the CPU: the cluster and scheduler entry
+points against the eager engine, the tile and round-plan errors, and the
+argument packing of csrc/round.cu against the dataclasses.
+
+Integer state: every comparison is exact. The JAX package is not needed
+here; tests/test_torch_pallas_round.py holds the engine against it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch import interop
+from raft_tpu_torch.config import Shape
+from raft_tpu_torch.ops import fused as tfused
+from raft_tpu_torch.ops import pallas_round as plr
+from raft_tpu_torch.ops import round_cuda as rc
+from raft_tpu_torch.scheduler import BlockedFusedCluster
+from raft_tpu_torch.state import init_state, slim_state
+
+V = 3
+G = 4
+N = G * V
+TILE = 2 * V
+RUN = dict(auto_propose=True, auto_compact_lag=4)
+
+
+def _shape(n_lanes=N, v=V):
+    return Shape(n_lanes=n_lanes, max_peers=v, log_window=8, max_msg_entries=2,
+                 max_inflight=2, max_read_index=2)
+
+
+def _digest(c) -> str:
+    return interop.digest(
+        interop.to_numpy_leaves(c.state) + interop.to_numpy_leaves(c.fab)
+        + interop.to_numpy_leaves(c.metrics)
+    )
+
+
+# -- (c) the entry points ---------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_cluster_pallas_equals_xla(k):
+    """A muted lane and injected ops, 9 rounds in two runs: the pallas
+    engine lands on the eager engine's digest at every K."""
+    cx = tfused.FusedCluster(G, V, seed=2, shape=_shape(), device="cpu")
+    cp = tfused.FusedCluster(G, V, seed=2, shape=_shape(), device="cpu", engine="pallas",
+                             tile_lanes=TILE, rounds_per_call=k)
+    assert (cx.engine, cp.engine, cp._pallas_rounds, cp._pallas_tile) == ("xla", "pallas", k, TILE)
+    for c in (cx, cp):
+        c.run(5, **RUN)
+        c.set_mute([4])
+        c.run(4, ops=c.ops(hup={7: True}, prop_n={0: 2}, prop_bytes=3,
+                           read_ctx={i: 50 + i for i in range(N)}), **RUN)
+    assert _digest(cx) == _digest(cp)
+    assert cp.metrics_snapshot()["counters"] == cx.metrics_snapshot()["counters"]
+
+
+def test_blocked_passthrough():
+    kw = dict(block_groups=2, seed=5, shape=_shape(6), round_chunk=2, device="cpu")
+    bx = BlockedFusedCluster(4, V, **kw)
+    bp = BlockedFusedCluster(4, V, engine="pallas", rounds_per_call=2, **kw)
+    assert all(b.engine == "pallas" and b._pallas_rounds == 2 for b in bp.blocks)
+    for b in (bx, bp):
+        b.run(24, **RUN)
+    assert bp.leader_count() == bx.leader_count() == 4
+    for x, p in zip(bx.blocks, bp.blocks):
+        assert _digest(x) == _digest(p)
+    assert bp.metrics_snapshot() == bx.metrics_snapshot()
+    bp.check_no_errors()
+
+
+def test_metrics_off_and_no_tick():
+    cx = tfused.FusedCluster(G, V, seed=3, shape=_shape(), device="cpu", metrics=False)
+    cp = tfused.FusedCluster(G, V, seed=3, shape=_shape(), device="cpu", metrics=False,
+                             engine="pallas", rounds_per_call=2)
+    for c in (cx, cp):
+        c.campaign(0)
+        c.run(3, do_tick=False, ops_first_round_only=False, ops=c.ops(prop_n={0: 1}))
+    assert cp.metrics is None
+    assert interop.digest(interop.to_numpy_leaves(cx.state)) == interop.digest(
+        interop.to_numpy_leaves(cp.state)
+    )
+
+
+# -- (d) tile and round-plan errors ----------------------------------------
+
+
+def test_tile_invariants_rejected():
+    plr.check_tile(12, 3, 6)
+    with pytest.raises(plr.TileError, match="multiple of v"):
+        plr.check_tile(12, 3, 4)
+    with pytest.raises(plr.TileError, match="does not divide"):
+        plr.check_tile(12, 3, 9)
+    with pytest.raises(plr.TileError, match=">= 1"):
+        plr.check_tile(12, 3, 0)
+    # a configuration error: raised by the constructor, never rerouted
+    with pytest.raises(plr.TileError, match="multiple of v"):
+        tfused.FusedCluster(G, V, seed=1, shape=_shape(), device="cpu", engine="pallas",
+                            tile_lanes=4)
+    # the xla engine ignores the pallas knobs, as in the JAX package
+    assert tfused.FusedCluster(G, V, shape=_shape(), device="cpu", tile_lanes=4).engine == "xla"
+
+
+def test_tile_helpers():
+    n, v = 4096 * 3, 3
+    cands = plr.tile_candidates(n, v)
+    assert cands == [768, 1536, 3072, 6144, n]
+    assert all(n % t == 0 and t % v == 0 for t in cands)
+    assert plr.default_tile(n, v) == 3072
+    assert plr.default_tile(12, 3) == 12
+    assert plr.default_tile(65536 * 3, 3) == 3072  # the bench block
+    assert rc.cta_lanes(3072, 3) == 192
+    assert rc.cta_lanes(6, 3) == 6
+    assert rc.cta_lanes(3 * 1021, 3) == 3  # 1021 is prime
+    assert all(rc.cta_lanes(t, 5) % 5 == 0 for t in (5, 10, 640, 5 * 512))
+
+
+@pytest.mark.parametrize("v", range(1, rc.MAX_V + 1))
+def test_tiles_and_blocks_align_to_groups(v):
+    """For every V the kernel instantiates: each tile candidate passes
+    check_tile, the default tile is one of them, and the CUDA block of each
+    tile holds whole groups, divides the tile and fits kMaxCta."""
+    for groups in (1, 3, 4, 1024, 4096, 65536):
+        n = groups * v
+        cands = plr.tile_candidates(n, v)
+        assert cands[-1] == n and cands == sorted(set(cands))
+        for t in cands:
+            plr.check_tile(n, v, t)
+            cta = rc.cta_lanes(t, v)
+            assert cta % v == 0 and t % cta == 0 and cta <= rc.MAX_CTA, (n, t, cta)
+        tile = plr.default_tile(n, v)
+        assert tile in cands
+        assert tile <= 1024 * v or tile == cands[0]
+
+
+def test_round_plan_validation():
+    plr.validate_round_plan(1)
+    plr.validate_round_plan(plr.MAX_ROUNDS_PER_CALL)
+    with pytest.raises(ValueError, match="MAX_ROUNDS_PER_CALL"):
+        plr.validate_round_plan(plr.MAX_ROUNDS_PER_CALL + 1)
+    for bad in (0, -2, 1.5, True):
+        with pytest.raises(ValueError, match="integer >= 1"):
+            plr.validate_round_plan(bad)
+    with pytest.raises(ValueError, match="round_chunk"):
+        plr.validate_round_plan(3, round_chunk=4)
+    plr.validate_round_plan(2, round_chunk=4)
+    with pytest.raises(ValueError, match="round_chunk"):
+        BlockedFusedCluster(4, 3, block_groups=2, seed=1, shape=_shape(6), device="cpu",
+                            engine="pallas", rounds_per_call=3, round_chunk=4)
+    with pytest.raises(ValueError, match="MAX_ROUNDS_PER_CALL"):
+        tfused.FusedCluster(G, V, shape=_shape(), device="cpu", engine="pallas",
+                            rounds_per_call=65)
+    with pytest.raises(ValueError, match="unknown engine"):
+        tfused.FusedCluster(G, V, shape=_shape(), device="cpu", engine="mosaic")
+    assert plr.resolve_engine(None) == "xla" and plr.resolve_engine("PALLAS") == "pallas"
+
+
+# -- (e) the argument packing -------------------------------------------------
+
+
+def test_round_cu_tables_follow_the_dataclasses():
+    """csrc/round.cu's leaf tables: the dataclass field order, and each
+    leaf's storage dtype and shape as the slim carry holds them."""
+    table = rc.layout()
+    assert {g: tuple(n for n, _, _ in rows) for g, rows in table.items()} == rc.dataclass_names()
+    n, w, e, f, r = N, 8, 2, 2, 2
+    ids = np.tile(np.arange(1, V + 1, dtype=np.int32), G)
+    peers = np.broadcast_to(np.arange(1, V + 1, dtype=np.int32), (N, V))
+    st = slim_state(init_state(_shape(), ids, peers, device="cpu"))
+    fab = tfused.slim_fabric(tfused.empty_fabric(n, V, e, "cpu"))
+    ops = tfused.no_ops(n, "cpu")
+    dims = {"w": w, "e": e, "f": f, "r": r}
+    leaves = {
+        "STATE": [getattr(st, x) for x in rc.dataclass_names()["STATE"]],
+        "CFG": [getattr(st.cfg, x) for x in rc.dataclass_names()["CFG"]],
+        "FABRIC": interop.to_numpy_leaves(fab),
+        "OPS": list(ops),
+    }
+    for g, rows in table.items():
+        assert len(rows) == len(leaves[g])
+        for (name, dt, kind), x in zip(rows, leaves[g]):
+            x = torch.as_tensor(x)
+            assert x.dtype == rc.DTYPES[dt], (g, name)
+            assert tuple(x.shape) == rc._shape(kind, n, V, dims), (g, name)
+
+
+def test_pack_checks_every_leaf():
+    c = tfused.FusedCluster(G, V, shape=_shape(), device="cpu")
+    m = c.metrics
+    kw = dict(v=V, kc=2, cta=TILE, apply_ops=True, ops_round0_only=True, do_tick=True,
+              auto_propose=True, auto_compact_lag=4)
+    samp = (m.samp_index, m.samp_round)
+    ptrs, dims, flags, lag, outputs, scratch = rc.pack(
+        c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw
+    )
+    assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 29 + 3
+    assert dims == [N, V, 8, 2, 2, 2, 2, TILE] and lag == 4
+    assert flags == rc.F_MUTE | rc.F_METRICS | rc.F_TICK | rc.F_AUTO_PROPOSE | rc.F_LAG | rc.F_OPS | rc.F_OPS_ROUND0
+    assert outputs[3].shape == (2, N // TILE, plr.PARTIAL_WIDTH)
+    assert len(scratch) == 29 and all(x is not None for x in scratch)
+    fat = tfused.fat_fabric(c.fab)
+    with pytest.raises(TypeError, match="fabric.rep_kind"):
+        rc.pack(c.state, fat, c._no_ops, c.mute, samp, m.round_ctr, **kw)
+    bad = dataclasses.replace(c.state, log_term=c.state.log_term[:, :4])
+    with pytest.raises(ValueError, match="state.log_term"):
+        rc.pack(bad, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw)
+    bad = dataclasses.replace(c.state, pr_match=c.state.pr_match.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        rc.pack(bad, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw)
+    with pytest.raises(ValueError, match="V <= 8"):
+        rc.pack(c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **dict(kw, v=9))
+
+
+@pytest.fixture(scope="module")
+def pack_args():
+    c = tfused.FusedCluster(G, V, shape=_shape(), device="cpu")
+    m = c.metrics
+    kw = dict(v=V, kc=2, cta=TILE, apply_ops=True, ops_round0_only=True, do_tick=True,
+              auto_propose=True, auto_compact_lag=4)
+    return c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr, kw
+
+
+def _with_leaf(args, group, name, x):
+    """pack's arguments with one leaf of the csrc/round.cu tables replaced."""
+    st, fab, ops = args[:3]
+    if group == "STATE":
+        st = dataclasses.replace(st, **{name: x})
+    elif group == "CFG":
+        st = dataclasses.replace(st, cfg=dataclasses.replace(st.cfg, **{name: x}))
+    elif group == "FABRIC":
+        leaves = rc._fab_leaves(fab)
+        leaves[rc.dataclass_names()["FABRIC"].index(name)] = x
+        fab = rc._fab_from_leaves(fab, leaves)
+    else:
+        ops = ops._replace(**{name: x})
+    return (st, fab, ops) + tuple(args[3:6])
+
+
+def _leaf(args, group, name):
+    st, fab, ops = args[:3]
+    return {
+        "STATE": lambda: getattr(st, name), "CFG": lambda: getattr(st.cfg, name),
+        "FABRIC": lambda: rc._fab_leaves(fab)[rc.dataclass_names()["FABRIC"].index(name)],
+        "OPS": lambda: getattr(ops, name),
+    }[group]()
+
+
+@pytest.mark.parametrize(
+    "group,name", [(g, name) for g, rows in rc.layout().items() for name, _, _ in rows]
+)
+def test_pack_refuses_each_bad_leaf(pack_args, group, name):
+    """The kernel reads every leaf through a raw pointer: a leaf of another
+    dtype, another shape or a strided layout is refused by name before any
+    launch, for each leaf of csrc/round.cu's tables."""
+    *args, kw = pack_args
+    x = _leaf(args, group, name)
+    what = f"{group.lower()}.{name}"
+    rc.pack(*args, **kw)
+    other = torch.int64 if x.dtype == torch.int32 else torch.int32
+    with pytest.raises(TypeError, match=f"{what} must be"):
+        rc.pack(*_with_leaf(args, group, name, x.to(other)), **kw)
+    with pytest.raises(ValueError, match=f"{what} must have shape"):
+        rc.pack(*_with_leaf(args, group, name, x.unsqueeze(-1)), **kw)
+    if x.dim() > 1:
+        strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+        with pytest.raises(ValueError, match=f"{what} must be contiguous"):
+            rc.pack(*_with_leaf(args, group, name, strided), **kw)
