@@ -11,10 +11,20 @@ last lists every ported kernel; the last line is
 
 Phases:
   device   the card's name and power limit (nvidia-smi)
-  build    nvcc of every csrc/*.cu, all started together
+  build    nvcc of csrc/quorum.cu and of csrc/round.cu for each (Shape,
+           CUDA block) the script uses (ROUND_BUILDS: W16/E2/F2/R2 at V=3
+           with the engine's 96-lane block and 6, 48 and 192 lanes, and at
+           V=5 with 10), all started together: seconds of each, and for
+           the round kernel ptxas's registers, stack frame and spills, its
+           shared memory and resident blocks per SM
   kernels  each quorum kernel against its plain version at V in {1,3,5,7},
            N = 196,608 (one block's lanes) and a ragged N; exact equality;
-           timed at the main-path shape (V = 3) against the plain version
+           timed at the main-path shape (V = 3) on raw launches with the
+           arguments packed once: device time per launch from the
+           profiler with the L2 cache overwritten before each launch (ms)
+           and back to back (warm_ms, inputs resident in L2), and CUDA
+           events over back-to-back launches, beside its wrapper and the
+           plain version
   parity   a 64-group FusedCluster for 33 rounds on the card and on the CPU:
            identical sha256 over every state, fabric and metrics leaf
   main     BlockedFusedCluster, 1,048,576 groups x 3 voters as 16 blocks of
@@ -39,7 +49,8 @@ Phases:
            launches must equal rounds x blocks / K and joint_kernel must
            not launch; then one launch at the main path's shape (block 0's
            carry) against its plain version, timed with CUDA events beside
-           the plain version and the bound
+           the plain version and the bound; raw K=1 launches at three CUDA
+           block sizes, and raw K=8 launches (ms per launch and per round)
   profile_pallas one K=1 round of every block under torch.profiler: CUDA
            kernels per block-round, device busy share, the megakernel's
            share of the device time
@@ -47,7 +58,9 @@ Phases:
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +81,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
 # quorum kernels' compares, selects and adds are 32-bit scalar operations
 SCALAR_OPS_PER_S = 67e12
+# The libraries of csrc/round.cu this script builds, as (Shape, CUDA block
+# lanes): bench.py's widths at the main path's V, at its engine block and at
+# the small blocks check_round_kernel uses, and at the second V; plus two
+# more engine blocks at V=3 for the block-size sweep of round_kernel_timing.
+BENCH_WIDTHS = dict(w=16, e=2, f=2, r=2)
+ROUND_BUILDS = [(dict(v=3, **BENCH_WIDTHS), 96), (dict(v=3, **BENCH_WIDTHS), 6),
+                (dict(v=5, **BENCH_WIDTHS), 10), (dict(v=3, **BENCH_WIDTHS), 48),
+                (dict(v=3, **BENCH_WIDTHS), 192)]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -102,6 +123,43 @@ def cuda_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn, name: str, iters: int = 100, cold: bool = False) -> float:
+    """Mean device time of the CUDA kernels whose name contains `name`, as
+    torch.profiler records them over `iters` calls of fn(); with `cold`,
+    the L2 cache is overwritten before each call (a 128 MB fill, which the
+    name leaves out), so the inputs come from device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 25, dtype=torch.int32, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if cold:
+                flush.fill_(0)
+            fn()
+        torch.cuda.synchronize()
+    times = [_device_us(e) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if not times:
+        raise AssertionError(f"the profiler recorded no {name} kernel")
+    return sum(times) / len(times) / 1e3
+
+
+def raw_launch(kernel, *args, target=None):
+    """A call of the kernel's C entry on the current stream with arguments
+    packed once: no checks, allocation or launch count."""
+    fn = kernel.fn(target)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go():
+        rc_ = fn(*args, stream)
+        if rc_ != 0:
+            raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc_}")
+
+    return go
+
+
 # -- kernels against their plain versions ------------------------------------
 
 
@@ -120,21 +178,29 @@ def quorum_inputs(rng, n: int, v: int, dev):
 
 
 def kernel_calls(match, mask_in, mask_out):
-    """name -> (kernel call, plain call) on the same inputs."""
+    """name -> (wrapper call, plain call, raw launch) on the same inputs;
+    the raw launch writes a preallocated output."""
     n, v = match.shape
     vm = [qc.pack_voter_major(x) for x in (match, mask_in, mask_out)]
+    out = torch.empty(n, dtype=torch.int32, device=match.device)
+    p = [x.data_ptr() for x in (match, mask_in, mask_out, out)]
+    pv = [x.data_ptr() for x in vm]
+    k = qc.KERNELS
     return {
         "committed_kernel": (
             lambda: qc.committed(match, mask_in),
             lambda: qr.majority_committed(match, mask_in),
+            raw_launch(k["committed_kernel"], p[0], p[1], p[3], n, v),
         ),
         "joint_kernel": (
             lambda: qc.joint_committed(match, mask_in, mask_out),
             lambda: qr.joint_committed_plain(match, mask_in, mask_out),
+            raw_launch(k["joint_kernel"], p[0], p[1], p[2], p[3], n, v),
         ),
         "joint_kernel_vm": (
             lambda: qc.joint_committed_packed(*vm, v=v, n=n),
             lambda: qr.joint_committed_plain(match, mask_in, mask_out),
+            raw_launch(k["joint_kernel_vm"], *pv, p[3], n, vm[0].shape[1], v),
         ),
     }
 
@@ -169,7 +235,7 @@ def check_kernels(dev) -> dict:
     for v in (1, 3, 5, 7):
         for n in (BLOCK_LANES, 100_003):
             calls = kernel_calls(*quorum_inputs(rng, n, v, dev))
-            for name, (kern, plain) in calls.items():
+            for name, (kern, plain, _) in calls.items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 if got.shape != want.shape or got.dtype != want.dtype:
@@ -183,13 +249,16 @@ def check_kernels(dev) -> dict:
     # time at the main path's shape: one block's lanes, V = 3
     calls = kernel_calls(*quorum_inputs(rng, BLOCK_LANES, VOTERS, dev))
     rows = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, raw) in calls.items():
         b = bytes_moved(name, BLOCK_LANES, VOTERS)
         ops = ops_needed(name, BLOCK_LANES, VOTERS)
         bytes_ms, ops_ms = 1e3 * b / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
         rows[name] = dict(
             max_abs_err=err[name],
-            ms=cuda_ms(kern),
+            ms=profiled_ms(raw, name, cold=True),
+            warm_ms=profiled_ms(raw, name),
+            raw_event_ms=cuda_ms(raw),
+            wrapper_ms=cuda_ms(kern),
             plain_ms=cuda_ms(plain, iters=50),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -404,44 +473,129 @@ def round_ops(n: int, v: int, w: int, e: int, f: int, r: int) -> int:
     return per_lane * n
 
 
+def round_occupancy(d: dict, cta: int) -> dict:
+    """csrc/round.cu raft_round_info for the Shape's library: shared memory
+    of a block of cta lanes, resident blocks per SM, registers and local
+    (stack) bytes per thread, as the runtime reports them."""
+    fn = build.load(rc.target(d, cta)).raft_round_info
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    err = fn(cta, out)
+    if err:
+        raise RuntimeError(f"raft_round_info({cta}) failed: CUDA error {err}")
+    return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2],
+                local_bytes=out[3])
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel function of nvcc's -Xptxas -v output: registers, stack
+    frame and spill bytes."""
+    out = []
+    for m in re.finditer(
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) bytes spill "
+        r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S,
+    ):
+        out.append(dict(function=m.group(1), stack_bytes=int(m.group(2)),
+                        spill_stores=int(m.group(3)), spill_loads=int(m.group(4)),
+                        registers=int(m.group(5))))
+    return out
+
+
+def engine_cta(d: dict) -> int:
+    """The CUDA block the pallas engine uses for a 65,536-group block."""
+    n = MAIN_BLOCK_GROUPS * d["v"]
+    return rc.cta_lanes(plr.default_tile(n, d["v"]), d["v"], d)
+
+
+def build_all() -> None:
+    t0 = time.perf_counter()
+    built = build.build("quorum", *(rc.target(d, cta) for d, cta in ROUND_BUILDS))
+    rows = {}
+    for key, b in built.items():
+        fns = ptxas_report(b.log)
+        rows[key] = dict(nvcc_s=b.seconds)
+        if key == "quorum":
+            rows[key]["max_registers"] = max((f["registers"] for f in fns), default=None)
+            rows[key]["spill_bytes"] = sum(f["spill_stores"] + f["spill_loads"] for f in fns)
+        else:
+            rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
+    for d, cta in ROUND_BUILDS:
+        rows[rc.target(d, cta).key].update(cta_lanes=cta, **round_occupancy(d, cta))
+    emit("build", seconds=time.perf_counter() - t0, targets=rows)
+
+
 def time_round_kernel(c):
-    """One launch at the main path's shape (block 0's carry) against its
-    plain version; the kernel and the plain version timed on it."""
+    """Launches at the main path's shape (block 0's carry) against the plain
+    version, K=1 and K=8; the kernel timed on raw launches (the arguments
+    packed once: the wrapper's per-call packing, about a millisecond of host
+    time, would otherwise set the pace) beside its wrapper, the plain
+    version and the bound; then raw K=1 launches at other CUDA blocks."""
     b = c.blocks[0]
     shape = b.shape
-    cta = rc.cta_lanes(b._pallas_tile, b.v)
+    d = rc.dims_of(b.state, b.fab, b.v)
+    cta = engine_cta(d)
     m = b.metrics
     args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
-    kw = dict(v=b.v, kc=1, cta=cta, apply_ops=True, ops_round0_only=True,
-              do_tick=True, auto_propose=True, auto_compact_lag=8)
-    got = rc.round_call(*args, **kw)
-    want = plr.round_kernel_ref(*args, **kw)
-    torch.cuda.synchronize()
-    a, bb = carry_leaves(*got), carry_leaves(*want)
-    bad = first_difference(a, bb)
-    if bad is not None:
-        raise AssertionError(f"round_kernel at the main path's shape: first differing leaf {bad}")
-    nbytes = round_bytes(args, got)
-    ops = round_ops(shape.n_lanes, b.v, shape.log_window, shape.max_msg_entries,
-                    shape.max_inflight, shape.max_read_index)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
-    # the kernel alone: the arguments packed once, raw launches (the
-    # wrapper's per-call packing, about a millisecond of host time, would
-    # otherwise set the pace); the wrapper's own rate is reported beside it
-    ptrs, dims, flags, lag, outs, scratch = rc.pack(*args, **kw)
-    arr, nptr, cdims = rc.as_c_args(ptrs, dims)
     kern = rc.KERNELS["round_kernel"]
-    row = dict(
-        max_abs_err=0,
-        ms=cuda_ms(lambda: kern.launch(b.state.term.device, arr, nptr, cdims, flags, lag),
-                   iters=50),
-        wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw), iters=20),
-        plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw), iters=3),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes, ops=ops, cta_lanes=cta, lanes=shape.n_lanes,
-    )
-    del outs, scratch  # the launches above wrote these; cuda_ms synchronized
+
+    def kw(kc, cta=cta):
+        return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True,
+                    do_tick=True, auto_propose=True, auto_compact_lag=8)
+
+    def raw(kc, cta=cta):
+        ptrs, dims, flags, lag, outs = rc.pack(*args, **kw(kc, cta))
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        return raw_launch(kern, arr, nptr, cdims, flags, lag, target=rc.target(d, cta)), outs
+
+    def carry(res):  # state and fabric: the same at every CUDA block
+        return [x for x in carry_leaves(*res) if x[0].startswith(("state.", "fabric."))]
+
+    rows = {}
+    wants = {}
+    for kc in (1, 8):
+        go, outs = raw(kc)
+        go()
+        wants[kc] = plr.round_kernel_ref(*args, **kw(kc))
+        torch.cuda.synchronize()
+        bad = first_difference(carry_leaves(*outs), carry_leaves(*wants[kc]))
+        if bad is not None:
+            raise AssertionError(f"round_kernel K={kc} at the main path's shape: "
+                                 f"first differing leaf {bad}")
+        nbytes = round_bytes(args, outs)
+        ops = kc * round_ops(shape.n_lanes, b.v, shape.log_window, shape.max_msg_entries,
+                             shape.max_inflight, shape.max_read_index)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
+        ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+        rows[kc] = dict(
+            max_abs_err=0, ms=ms, ms_per_round=ms / kc,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, ops=ops, rounds=kc,
+        )
+        if kc == 1:
+            rows[kc].update(
+                profiled_ms=profiled_ms(go, "round_kernel", iters=20),
+                wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
+                plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
+            )
+        del go, outs
+    sweep = {}
+    tile = b._pallas_tile
+    for cb in sorted({48, 96, 192, cta}):
+        if tile % cb or cb % b.v or rc.smem_bytes(d, cb) > rc.MAX_SMEM:
+            continue
+        sweep[cb] = round_occupancy(d, cb)
+        for kc in (1, 8):
+            go, outs = raw(kc, cb)
+            go()
+            torch.cuda.synchronize()
+            bad = first_difference(carry(outs), carry(wants[kc]))
+            if bad is not None:
+                raise AssertionError(f"round_kernel K={kc} at cta={cb}: first differing leaf {bad}")
+            sweep[cb][f"k{kc}_ms"] = cuda_ms(go, iters=50 if kc == 1 else 10)
+            del go, outs
+    row = dict(rows[1], cta_lanes=cta, lanes=shape.n_lanes, k8=rows[8], cta_sweep=sweep)
     emit("round_kernel_timing", **row)
     return row
 
@@ -492,13 +646,7 @@ def main() -> int:
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda")
 
-    t0 = time.perf_counter()
-    built = build.build(*sorted(p.stem for p in build.CSRC.glob("*.cu")))
-    emit(
-        "build", seconds=time.perf_counter() - t0,
-        ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
-               if "registers" in ln or "spill" in ln],
-    )
+    build_all()
 
     timing = check_kernels(dev)
     check_parity()

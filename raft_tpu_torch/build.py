@@ -1,12 +1,14 @@
 """Build the port's CUDA sources into shared libraries with a plain C
 interface, and load them with ctypes.
 
-Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) on first
-use into `csrc/build/<name>-<hash>.so`, keyed by a hash of the source and
-the flags and of the shared headers (`csrc/*.cuh`), so an edited source
-or header rebuilds and an unchanged one is reused.
-`build` starts one `nvcc` per source, all at once, and waits for them
-together. Nothing is built when this module is imported.
+A build target is a source `csrc/<source>.cu` and the `-D` macros it is
+compiled with (csrc/round.cu takes the Shape that way, so each Shape a run
+uses is one library). Each target compiles with `nvcc` for Hopper
+(`sm_90a`) on first use into `csrc/build/<key>-<hash>.so`, keyed by a hash
+of the source, the shared headers (`csrc/*.cuh`), the flags and the
+macros, so an edited source or header rebuilds and an unchanged one is
+reused. `build` starts one `nvcc` per target, all at once, and waits for
+them together. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -32,8 +34,31 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 
 @dataclasses.dataclass(frozen=True)
+class Target:
+    """csrc/<source>.cu compiled with -D<name>=<value> for each define."""
+
+    source: str
+    defines: tuple[tuple[str, int], ...] = ()
+
+    @property
+    def key(self) -> str:
+        """e.g. "quorum", "round-v3-w16-e2-f2-r2"."""
+        return self.source + "".join(
+            f"-{name.removeprefix('RAFT_').lower()}{value}" for name, value in self.defines
+        )
+
+    @property
+    def flags(self) -> tuple[str, ...]:
+        return tuple(f"-D{name}={value}" for name, value in self.defines)
+
+
+def as_target(t: Target | str) -> Target:
+    return t if isinstance(t, Target) else Target(t)
+
+
+@dataclasses.dataclass(frozen=True)
 class Built:
-    name: str
+    name: str  # the target's key
     path: Path
     seconds: float  # 0.0 when the library was already built
     log: str  # nvcc's output (ptxas register/spill report), "" when reused
@@ -46,48 +71,51 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(target: Target | str) -> Path:
+    t = as_target(target)
+    src = (CSRC / f"{t.source}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    flags = " ".join(NVCC_FLAGS + t.flags).encode()
+    digest = hashlib.sha256(src + headers + flags).hexdigest()
+    return BUILD_DIR / f"{t.key}-{digest[:16]}.so"
 
 
-def build(*names: str) -> dict[str, Built]:
-    """Compile every named source that has no current library, all in
-    parallel. Raises with nvcc's output if any compile fails."""
+def build(*targets: Target | str) -> dict[str, Built]:
+    """Compile every target that has no current library, all in parallel;
+    returns key -> Built. Raises with nvcc's output if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     out = {}
-    for name in names:
-        dst = library_path(name)
+    for t in map(as_target, targets):
+        dst = library_path(t)
         if dst.exists():
-            out[name] = Built(name, dst, 0.0, "")
+            out[t.key] = Built(t.key, dst, 0.0, "")
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *t.flags, "-o", str(tmp), str(CSRC / f"{t.source}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        jobs[name] = (proc, dst, tmp, time.perf_counter())
+        jobs[t.key] = (proc, dst, tmp, time.perf_counter())
     failed = []
-    for name, (proc, dst, tmp, t0) in jobs.items():
+    for key, (proc, dst, tmp, t0) in jobs.items():
         log, _ = proc.communicate()
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            failed.append(f"nvcc {key} exited {proc.returncode}:\n{log}")
             continue
         os.replace(tmp, dst)  # atomic: concurrent builds race safely
-        out[name] = Built(name, dst, secs, log)
+        out[key] = Built(key, dst, secs, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, building it if needed."""
-    lib = _loaded.get(name)
+def load(target: Target | str) -> ctypes.CDLL:
+    """The loaded library of a target, building it if needed."""
+    t = as_target(target)
+    lib = _loaded.get(t.key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)[name].path))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(build(t)[t.key].path))
+        _loaded[t.key] = lib
     return lib

@@ -11,48 +11,76 @@
 // version is ops/pallas_round.py round_kernel_ref, and the two agree on
 // every carry leaf and every partials row, exactly (integer state).
 //
-// Design. One thread per lane; a CUDA block covers whole raft groups (its
-// lane count is a multiple of V), so routing never leaves the block and no
-// grid-wide sync is needed.
-// - Carry: each thread loads its lane's slim state columns, widening the
-//   narrow dtypes to int32 (struct Lane), runs the rounds, narrows between
-//   rounds (replaying the slim casts, so K rounds in one launch equal K
-//   launches of one round bit for bit) and stores once.
-// - Routing without a transposed copy: lane g*V+j reads its inbound cell i
-//   straight from the outbound fabric of lane g*V+i, slot j; the mute cut
-//   (sender or receiver muted) applies at the read, the self slot passes
-//   through. The fabric of round k is written to a second buffer
-//   (ping-pong between the output fabric and a scratch fabric, one
-//   __syncthreads() per round), never to the one being read.
+// What bounds it. Per launch the carry crosses device memory once each way
+// (about 1.5 KB per lane at the bench shape), and each round is a few
+// thousand integer operations per lane on that carry, many of them reads
+// of the log window and the fabric at indexes that depend on the data. So
+// the kernel is bound by where the carry lives while the rounds run: in
+// registers and shared memory it is the device-memory bytes and the
+// latency of the round's dependent chains; in a thread's local memory (a
+// stack frame of KBs per thread, far beyond the L2 across the card) every
+// access inside the round is device-memory traffic.
+//
+// Design.
+// - Compile-time Shape and block. V, W (log_window), E (max_msg_entries),
+//   F (max_inflight), R (max_read_index) and S (the most lanes a block
+//   takes, a multiple of 32) are -D macros: build.py compiles one library
+//   per (Shape, S) a run uses. Every per-lane array is exactly as long as
+//   the Shape asks, every loop over one unrolls, and every shared-memory
+//   address folds into an immediate offset.
+// - One thread per lane; a CUDA block covers whole raft groups (its lane
+//   count is a multiple of V), so routing never leaves the block and no
+//   grid-wide sync is needed.
+// - Registers: the LANE scalars and the PEER arrays (always indexed by the
+//   loop over V), widened to int32 and narrowed between rounds, which
+//   replays the slim casts (K rounds in one launch equal K launches of one
+//   round bit for bit). Nothing selects an element of them by a
+//   data-dependent index (a bit mask does, where the reference does):
+//   such an index keeps the whole carry in local memory.
+// - Shared memory, element e of lane t at [e * s + t]: the rings indexed
+//   by data (log window, inflights, ReadIndex queues; s = S, so a warp
+//   hits 32 banks whatever elements its threads pick), in their slim
+//   dtypes, which hold every value the reference stores there; and two
+//   fabric buffers (s = S + 1, so the routed reads of a group's V senders
+//   fall in distinct banks). About 790 B per lane at the bench shape: 96
+//   lanes a block, three blocks an SM.
+// - Fabric on-chip across the K rounds: lane g*V+j reads its inbound cell
+//   i straight from the outbox of lane g*V+i, slot j, with the mute cut
+//   applied to its own inbound cells (sender or receiver muted; the self
+//   slot passes through); round k reads buffer k % 2 and writes its outbox
+//   to the other, one __syncthreads() per round; only the last round's
+//   outbox is stored.
+// - Device memory: each thread moves its own lane's rows (16-byte
+//   accesses where a row allows; a warp's 32 neighbouring rows use every
+//   sector it fetches) and writes its own shared-memory columns, so the
+//   load and the store need no barrier and no index arithmetic. (A copy by
+//   the whole block, each leaf's chunk transposed through shared memory,
+//   made a one-round launch 3.7x slower: PERF.md, PR 3.)
 // - The commit index and vote tallies are per lane over its own [V]
 //   progress rows: raft::joint_committed / reduce_half<V> of quorum.cuh,
 //   shared with quorum.cu.
-// - Metrics: per-thread counter deltas, latency bucket and lat_sum, summed
-//   into the block's partials row for the round with shared-memory integer
-//   atomics (exact in any order); the rows are summed outside the kernel.
-// - The source is laid out as device functions that mirror the Python
-//   modules (ops/log.py, ops/progress.py, ops/step.py, ops/fused.py), so a
-//   leaf that differs points at one function.
-//
-// Bound. A lane's round is a few thousand integer operations on its own
-// carry; the carry itself (about 750 B/lane slim at the bench shape) is
-// read once and written once per launch, so at the bench shape the bytes
-// bound it (chip_smoke.py computes both bounds from the real tensors).
-// This first version keeps the widened carry in local memory (ptxas
-// reports the stack frame and spills); staging it through shared memory,
-// coalescing the column loads and keeping it in registers is later work.
+// - Metrics: each counter summed across the warp (redux) and added to the
+//   block's shared row with one atomic per warp; exact in any order. One
+//   partials row per (round, block); the rows are summed outside.
+// - The source is laid out as functions that mirror the Python modules
+//   (ops/log.py, ops/progress.py, ops/step.py, ops/fused.py), so a leaf
+//   that differs points at one function.
 //
 // Argument packing. The pointer table follows the dataclass field order of
 // RaftState, LaneConfig, Fabric and LocalOps; the X-macro tables below are
 // that order, with each leaf's storage dtype and shape, and
 // tests/test_torch_pallas_round.py holds them against the dataclasses.
-// Everything not under __CUDACC__ also compiles as plain C++ (the host
-// entry raft_round_host runs the same lane code on the CPU).
+// Everything not under __CUDACC__ also compiles as plain C++: the host
+// entry raft_round_host runs the same phases on a block-sized buffer with
+// the same layout, lane after lane.
 
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define RAFT_UNROLL _Pragma("unroll")
+#else
+#define RAFT_UNROLL
 #endif
 
 #include "quorum.cuh"
@@ -179,15 +207,30 @@
   X(prop_cc, I32, LANE)      \
   X(beat, BOOL, LANE)
 
+#if !defined(RAFT_V) || !defined(RAFT_W) || !defined(RAFT_E) || \
+    !defined(RAFT_F) || !defined(RAFT_R) || !defined(RAFT_S)
+#error "build round.cu for one Shape and block: -DRAFT_V= -DRAFT_W= -DRAFT_E= -DRAFT_F= -DRAFT_R= -DRAFT_S="
+#endif
+
 namespace raft {
 
-// compile-time capacities of the per-thread arrays (the wrapper raises on a
-// Shape above them)
-constexpr int kMaxW = 64;  // log_window
-constexpr int kMaxE = 8;   // max_msg_entries
-constexpr int kMaxF = 8;   // max_inflight
-constexpr int kMaxR = 8;   // max_read_index
+// the Shape this library is built for (config.Shape)
+constexpr int V = RAFT_V;  // max_peers
+constexpr int W = RAFT_W;  // log_window
+constexpr int E = RAFT_E;  // max_msg_entries
+constexpr int F = RAFT_F;  // max_inflight
+constexpr int R = RAFT_R;  // max_read_index
+static_assert(V >= 1 && V <= 8, "the round kernel takes V = 1..8");
+static_assert(W >= 1 && W <= 64 && (W & (W - 1)) == 0, "W: a power of two <= 64");
+static_assert(E >= 1 && E <= 8 && F >= 1 && F <= 8 && R >= 1 && R <= 8,
+              "the round kernel takes E, F, R = 1..8");
 constexpr int kMaxCta = 256;  // lanes (threads) per CUDA block
+// The column stride of the block's shared memory: the most lanes a block
+// of this library takes (a multiple of 32). A compile-time stride folds
+// every shared-memory address of the lane code into an immediate offset
+// from a few base registers.
+constexpr int S = RAFT_S;
+static_assert(S >= 32 && S <= kMaxCta && S % 32 == 0, "S: a multiple of 32 <= kMaxCta");
 
 #define RAFT_COUNT(name, dt, shape) +1
 constexpr int kStateN = 0 RAFT_STATE_FIELDS(RAFT_COUNT);
@@ -195,6 +238,14 @@ constexpr int kCfgN = 0 RAFT_CFG_FIELDS(RAFT_COUNT);
 constexpr int kFabN = 0 RAFT_FABRIC_FIELDS(RAFT_COUNT);
 constexpr int kOpsN = 0 RAFT_OPS_FIELDS(RAFT_COUNT);
 #undef RAFT_COUNT
+
+// leaf indexes in table order
+#define RAFT_ENUM_STATE(name, dt, shape) SL_##name,
+#define RAFT_ENUM_FAB(name, dt, shape) FL_##name,
+enum : int { RAFT_STATE_FIELDS(RAFT_ENUM_STATE) };
+enum : int { RAFT_FABRIC_FIELDS(RAFT_ENUM_FAB) };
+#undef RAFT_ENUM_STATE
+#undef RAFT_ENUM_FAB
 
 // The pointer table, in this order (round_cuda.py builds the same list):
 enum : int {
@@ -208,8 +259,7 @@ enum : int {
   P_ROUND_CTR,                     // [] i32 (metrics on)
   P_STATE_OUT,
   P_FAB_OUT = P_STATE_OUT + kStateN,
-  P_FAB_SCR = P_FAB_OUT + kFabN,   // scratch fabric (kc > 1)
-  P_SAMP_INDEX_OUT = P_FAB_SCR + kFabN,
+  P_SAMP_INDEX_OUT = P_FAB_OUT + kFabN,
   P_SAMP_ROUND_OUT,
   P_PARTIALS,                      // [kc, n / cta, kPartialWidth] i32
   kNumPtrs
@@ -267,19 +317,13 @@ constexpr int BIG = 2147483647;
 struct Args {
   void *p[kNumPtrs];
   long long n;
-  int w, e, f, r;
   int kc;     // rounds in this launch
   int flags;
   int lag;    // auto_compact_lag when F_LAG
 };
 
-struct Dims {
-  long long n;
-  int w, e, f, r;
-};
-
 // ---------------------------------------------------------------------------
-// the widened per-lane carry, one member per leaf
+// the block's shared-memory buffer
 
 #define RAFT_CT_I32 int
 #define RAFT_CT_I16 int
@@ -291,145 +335,445 @@ struct Dims {
 #define RAFT_ST_I8 int8_t
 #define RAFT_ST_BOOL uint8_t
 #define RAFT_ST_U32 uint32_t
-#define RAFT_DIMS_LANE
-#define RAFT_DIMS_PEER [V]
-#define RAFT_DIMS_WIN [kMaxW]
-#define RAFT_DIMS_INFL [V][kMaxF]
-#define RAFT_DIMS_READ [kMaxR]
-#define RAFT_DIMS_READ_PEER [kMaxR][V]
-#define RAFT_DIMS_ENT [V][kMaxE]
-#define RAFT_MEMBER(name, dt, shape) RAFT_CT_##dt name RAFT_DIMS_##shape;
 
-template <int V>
+enum : int { K_LANE, K_PEER, K_WIN, K_INFL, K_READ, K_READ_PEER, K_ENT };
+
+// The state leaves the round never reads or writes (fused.py leaves them
+// to the host): a lane's row goes from the input straight to the output,
+// and takes no register and no shared memory (round_cuda.py THROUGH is the
+// same list).
+RAFT_HD constexpr bool through(int k) {
+  return k == SL_is_learner || k == SL_learners_next || k == SL_auto_leave ||
+         k == SL_pri_ctx || k == SL_pri_from;
+}
+
+struct Leaf {
+  int bytes, kind;
+  bool through;
+};
+#define RAFT_LEAF_STATE(name, dt, shape) \
+  Leaf{(int)sizeof(RAFT_ST_##dt), K_##shape, through(SL_##name)},
+#define RAFT_LEAF_FAB(name, dt, shape) Leaf{(int)sizeof(RAFT_ST_##dt), K_##shape, false},
+constexpr Leaf kStateLeaves[] = {RAFT_STATE_FIELDS(RAFT_LEAF_STATE)};
+constexpr Leaf kFabLeaves[] = {RAFT_FABRIC_FIELDS(RAFT_LEAF_FAB)};
+#undef RAFT_LEAF_STATE
+#undef RAFT_LEAF_FAB
+
+RAFT_HD constexpr int state_kind(int k) { return kStateLeaves[k].kind; }
+
+RAFT_HD constexpr int elems(int kind) {
+  return kind == K_LANE ? 1
+       : kind == K_PEER ? V
+       : kind == K_WIN ? W
+       : kind == K_INFL ? V * F
+       : kind == K_READ ? R
+       : kind == K_READ_PEER ? R * V
+                             : V * E;
+}
+
+// the leaves held in shared memory, by set: the state's rings (indexed by
+// data) and the fabric
+enum : int { SET_RING, SET_FAB };
+
+RAFT_HD constexpr bool in_set(int set, const Leaf &l) {
+  return set == SET_RING ? (l.kind == K_WIN || l.kind == K_INFL || l.kind == K_READ ||
+                            l.kind == K_READ_PEER) && !l.through
+                         : true;
+}
+
+// Per lane, the elements of the set's leaves before leaf k, in the set's
+// 32-bit region (wide) or its 8-bit region.
+RAFT_HD constexpr int set_off(const Leaf *t, int k, int set, bool wide) {
+  int o = 0;
+  for (int j = 0; j < k; ++j)
+    if (in_set(set, t[j]) && (t[j].bytes == 4) == wide) o += elems(t[j].kind);
+  return o;
+}
+
+RAFT_HD constexpr bool set_sizes_ok(const Leaf *t, int n, int set) {
+  for (int j = 0; j < n; ++j)
+    if (in_set(set, t[j]) && t[j].bytes != 4 && t[j].bytes != 1) return false;
+  return true;
+}
+static_assert(set_sizes_ok(kStateLeaves, kStateN, SET_RING) &&
+                  set_sizes_ok(kFabLeaves, kFabN, SET_FAB),
+              "the leaves in shared memory are 32-bit or 8-bit");
+
+constexpr int kRing32 = set_off(kStateLeaves, kStateN, SET_RING, true);
+constexpr int kRing8 = set_off(kStateLeaves, kStateN, SET_RING, false);
+constexpr int kFab32 = set_off(kFabLeaves, kFabN, SET_FAB, true);
+constexpr int kFab8 = set_off(kFabLeaves, kFabN, SET_FAB, false);
+
+RAFT_HD constexpr long long pad16(long long x) { return (x + 15) & ~15LL; }
+
+// Byte offsets into the block's buffer, compile-time constants. Element e
+// of lane t of a leaf in shared memory sits at column[e * s + t]: s = sr =
+// S for the rings, s = sf = S + 1 for the two fabric buffers.
+struct Block {
+  unsigned char *base;
+  static constexpr int sr = S, sf = S + 1;
+  static constexpr long long ring32 = 0;
+  static constexpr long long ring8 = ring32 + pad16(4LL * kRing32 * sr);
+  static constexpr long long fab0 = ring8 + pad16((long long)kRing8 * sr);
+  static constexpr long long fab32_bytes = pad16(4LL * kFab32 * sf);
+  static constexpr long long fab_bytes = fab32_bytes + pad16((long long)kFab8 * sf);
+  static constexpr long long acc0 = fab0 + 2 * fab_bytes;
+  static constexpr long long acc_bytes = pad16(4LL * kPartUsed);
+  static constexpr long long bytes = acc0 + 2 * acc_bytes;
+
+  // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
+  RAFT_HD long long fab32(int b) const { return fab0 + b * fab_bytes; }
+  RAFT_HD long long fab8(int b) const { return fab32(b) + fab32_bytes; }
+  RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
+};
+
+template <typename ST>
+RAFT_HD ST *col_at(const Block &B, long long region32, long long region8,
+                   int off32, int off8, int s) {
+  return sizeof(ST) == 4 ? (ST *)(B.base + region32) + (long long)off32 * s
+                         : (ST *)(B.base + region8) + (long long)off8 * s;
+}
+
+// column of state leaf K in the rings
+template <int K, typename ST>
+RAFT_HD ST *ring_col(const Block &B) {
+  constexpr int o32 = set_off(kStateLeaves, K, SET_RING, true);
+  constexpr int o8 = set_off(kStateLeaves, K, SET_RING, false);
+  return col_at<ST>(B, B.ring32, B.ring8, o32, o8, B.sr);
+}
+
+// column of fabric leaf K in fabric buffer b
+template <int K, typename ST>
+RAFT_HD ST *fab_col(const Block &B, int b) {
+  constexpr int o32 = set_off(kFabLeaves, K, SET_FAB, true);
+  constexpr int o8 = set_off(kFabLeaves, K, SET_FAB, false);
+  return col_at<ST>(B, B.fab32(b), B.fab8(b), o32, o8, B.sf);
+}
+
+// A thread's view of a shared-memory column: element e at p[e * s].
+template <typename T>
+struct Col {
+  T *p;
+  int s;
+  RAFT_HD T &operator[](int e) const { return p[(long long)e * s]; }
+};
+
+// [X][Y] elements: row x is the Col at p + x * so, element stride si.
+template <typename T>
+struct Col2 {
+  T *p;
+  int so, si;
+  RAFT_HD Col<T> operator[](int x) const { return Col<T>{p + (long long)x * so, si}; }
+};
+
+// ---------------------------------------------------------------------------
+// a lane's row of an [N, X] leaf in device memory, moved as a whole: in
+// accesses of U bytes, the widest of 16, 8 and 4 that divides the row (the
+// wrapper checks that every leaf starts 16-byte aligned), else element by
+// element. The threads of a warp read 32 neighbouring rows, so every
+// sector fetched is used; the elements go to registers or to the lane's
+// shared-memory column, where a warp's stores hit 32 banks.
+
+template <int U>
+struct alignas(U) Bits {
+  uint32_t w[U / 4];
+};
+
+template <typename T, int X>
+struct RowIO {
+  static constexpr int kBytes = X * (int)sizeof(T);
+  static constexpr int U = kBytes % 16 == 0 ? 16 : kBytes % 8 == 0 ? 8 : kBytes % 4 == 0 ? 4 : 0;
+  static constexpr int PER = U / (int)sizeof(T);  // elements per access
+
+  static RAFT_HD void load(const T *row, T (&e)[X]) {
+    if constexpr (U == 0) {
+      RAFT_UNROLL
+      for (int q = 0; q < X; ++q) e[q] = row[q];
+    } else {
+      RAFT_UNROLL
+      for (int a = 0; a < kBytes / U; ++a) {
+        const Bits<U> b = ((const Bits<U> *)row)[a];
+        RAFT_UNROLL
+        for (int q = 0; q < PER; ++q)
+          e[a * PER + q] = sizeof(T) == 4 ? (T)b.w[q] : (T)(b.w[q / 4] >> (8 * (q % 4)));
+      }
+    }
+  }
+
+  static RAFT_HD void store(T *row, const T (&e)[X]) {
+    if constexpr (U == 0) {
+      RAFT_UNROLL
+      for (int q = 0; q < X; ++q) row[q] = e[q];
+    } else {
+      RAFT_UNROLL
+      for (int a = 0; a < kBytes / U; ++a) {
+        Bits<U> b;
+        RAFT_UNROLL
+        for (int w = 0; w < U / 4; ++w) b.w[w] = 0;
+        RAFT_UNROLL
+        for (int q = 0; q < PER; ++q) {
+          const uint32_t x = sizeof(T) == 4 ? (uint32_t)e[a * PER + q]
+                                            : (uint32_t)(uint8_t)e[a * PER + q] << (8 * (q % 4));
+          b.w[sizeof(T) == 4 ? q : q / 4] |= x;
+        }
+        ((Bits<U> *)row)[a] = b;
+      }
+    }
+  }
+};
+
+// lane i's row <-> its column (element e at col[e * s])
+template <typename T, int X>
+RAFT_HD void row_to_col(const T *g, long long i, T *col, int s) {
+  T e[X];
+  RowIO<T, X>::load(g + i * X, e);
+  RAFT_UNROLL
+  for (int q = 0; q < X; ++q) col[q * s] = e[q];
+}
+
+template <typename T, int X>
+RAFT_HD void col_to_row(T *g, long long i, const T *col, int s) {
+  T e[X];
+  RAFT_UNROLL
+  for (int q = 0; q < X; ++q) e[q] = col[q * s];
+  RowIO<T, X>::store(g + i * X, e);
+}
+
+// lane t's outbox row of fabric leaf K: in from the input fabric into
+// buffer 0, or out from buffer b to the output fabric
+template <int K, typename ST, int KIND>
+RAFT_HD void fab_row(const Args &a, const Block &B, long long i, int t, int b, bool in) {
+  ST *col = fab_col<K, ST>(B, in ? 0 : b) + t;
+  if (in)
+    row_to_col<ST, elems(KIND)>((const ST *)a.p[P_FAB_IN + K], i, col, B.sf);
+  else
+    col_to_row<ST, elems(KIND)>((ST *)a.p[P_FAB_OUT + K], i, col, B.sf);
+}
+
+RAFT_HD void fab_rows(const Args &a, const Block &B, long long i, int t, int b, bool in) {
+#define RAFT_FAB_ROW(name, dt, shape) \
+  fab_row<FL_##name, RAFT_ST_##dt, K_##shape>(a, B, i, t, b, in);
+  RAFT_FABRIC_FIELDS(RAFT_FAB_ROW)
+#undef RAFT_FAB_ROW
+}
+
+// ---------------------------------------------------------------------------
+// the per-lane carry: LANE and PEER leaves in registers (widened), the
+// rings as views of the block's shared memory (slim)
+
+#define RAFT_MT_LANE(ct, st) ct
+#define RAFT_MT_PEER(ct, st) ct
+#define RAFT_MT_WIN(ct, st) Col<st>
+#define RAFT_MT_INFL(ct, st) Col2<st>
+#define RAFT_MT_READ(ct, st) Col<st>
+#define RAFT_MT_READ_PEER(ct, st) Col2<st>
+#define RAFT_MD_LANE
+#define RAFT_MD_PEER [V]
+#define RAFT_MD_WIN
+#define RAFT_MD_INFL
+#define RAFT_MD_READ
+#define RAFT_MD_READ_PEER
+#define RAFT_MEMBER(name, dt, shape) \
+  RAFT_MT_##shape(RAFT_CT_##dt, RAFT_ST_##dt) name RAFT_MD_##shape;
+
 struct Lane {
   RAFT_STATE_FIELDS(RAFT_MEMBER)
 };
 
-template <int V>
 struct Cfg {
   RAFT_CFG_FIELDS(RAFT_MEMBER)
 };
 
-// a routed inbox or an outbox: cell i of a PEER leaf is member i
-template <int V>
-struct Fab {
-  RAFT_FABRIC_FIELDS(RAFT_MEMBER)
-};
-
-template <int V>
 struct Ops {
   RAFT_OPS_FIELDS(RAFT_MEMBER)
 };
 
+#undef RAFT_MEMBER
+
+// A lane's view of one fabric buffer, one member per leaf: as an outbox,
+// cell j of a PEER leaf is member[j] and entry k of cell j of an ENT leaf
+// member[j][k]; as an inbox, the same indexes reach the senders' cells.
+// The self channel (LANE) is member[0].
+#define RAFT_FT_LANE(st) Col<st>
+#define RAFT_FT_PEER(st) Col<st>
+#define RAFT_FT_ENT(st) Col2<st>
+#define RAFT_FAB_MEMBER(name, dt, shape) RAFT_FT_##shape(RAFT_ST_##dt) name;
+
+struct Fab {
+  RAFT_FABRIC_FIELDS(RAFT_FAB_MEMBER)
+};
+
+#undef RAFT_FAB_MEMBER
+
+// lane t's own cells (its outbox) in buffer b
+template <int K, typename ST>
+RAFT_HD void bind_out(Col<ST> &x, const Block &B, int b, int t) {
+  x = Col<ST>{fab_col<K, ST>(B, b) + t, B.sf};
+}
+template <int K, typename ST>
+RAFT_HD void bind_out(Col2<ST> &x, const Block &B, int b, int t) {
+  x = Col2<ST>{fab_col<K, ST>(B, b) + t, E * B.sf, B.sf};
+}
+
+// the cells sent to lane t = base + me by the lanes of its group: sender
+// i's slot me, so element i steps over threads
+template <int K, typename ST>
+RAFT_HD void bind_in(Col<ST> &x, const Block &B, int b, int base, int me, int kind) {
+  ST *col = fab_col<K, ST>(B, b);
+  x = kind == K_LANE ? Col<ST>{col + base + me, B.sf} : Col<ST>{col + (long long)me * B.sf + base, 1};
+}
+template <int K, typename ST>
+RAFT_HD void bind_in(Col2<ST> &x, const Block &B, int b, int base, int me, int) {
+  x = Col2<ST>{fab_col<K, ST>(B, b) + (long long)me * E * B.sf + base, 1, B.sf};
+}
+
+RAFT_HD Fab outbox(const Block &B, int b, int t) {
+  Fab f;
+#define RAFT_BIND_OUT(name, dt, shape) bind_out<FL_##name, RAFT_ST_##dt>(f.name, B, b, t);
+  RAFT_FABRIC_FIELDS(RAFT_BIND_OUT)
+#undef RAFT_BIND_OUT
+  return f;
+}
+
+RAFT_HD Fab inbox(const Block &B, int b, int t) {
+  Fab f;
+  const int me = t % V, base = t - me;
+#define RAFT_BIND_IN(name, dt, shape) \
+  bind_in<FL_##name, RAFT_ST_##dt>(f.name, B, b, base, me, K_##shape);
+  RAFT_FABRIC_FIELDS(RAFT_BIND_IN)
+#undef RAFT_BIND_IN
+  return f;
+}
+
 // ---------------------------------------------------------------------------
-// leaf I/O: load (widen), store (narrow), and the narrow->widen round trip
+// per-thread leaf I/O, by member type: LANE scalars and PEER rows between
+// device memory and registers, the rings' rows between device memory and
+// their columns (the views bound at load)
 
-enum : int { LOAD = 0, STORE = 1, ROUNDTRIP = 2, LOAD_ROUTED = 3 };
+// a through leaf's row, input to output
+template <int K, typename ST, int X>
+RAFT_HD void pass_row(const Args &a, long long i) {
+  ST e[X];
+  RowIO<ST, X>::load((const ST *)a.p[P_STATE_IN + K] + i * X, e);
+  RowIO<ST, X>::store((ST *)a.p[P_STATE_OUT + K] + i * X, e);
+}
 
-template <int OP, typename ST, typename CT>
-RAFT_HD void io1(void *p, long long off, CT &x) {
-  if (OP == LOAD || OP == LOAD_ROUTED) {
-    x = (CT)((const ST *)p)[off];
-  } else if (OP == STORE) {
-    ((ST *)p)[off] = (ST)x;
+template <int K, typename ST, typename CT>
+RAFT_HD void load_leaf(CT &x, const Args &a, const Block &, long long i, int) {
+  if constexpr (through(K))
+    pass_row<K, ST, 1>(a, i);
+  else
+    x = (CT)((const ST *)a.p[P_STATE_IN + K])[i];
+}
+template <int K, typename ST, typename CT>
+RAFT_HD void load_leaf(CT (&x)[V], const Args &a, const Block &, long long i, int) {
+  if constexpr (through(K)) {
+    pass_row<K, ST, V>(a, i);
   } else {
-    x = (CT)(ST)x;
+    ST e[V];
+    RowIO<ST, V>::load((const ST *)a.p[P_STATE_IN + K] + i * V, e);
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) x[j] = (CT)e[j];
   }
 }
-
-template <int OP, typename ST, typename CT>
-RAFT_HD void io_LANE(void *p, CT &x, long long i, int v, const Dims &) {
-  (void)v;
-  io1<OP, ST>(p, i, x);
-}
-
-// PEER: own slot j of lane i, or, routed, the sender's slot for this lane
-template <int OP, typename ST, typename CT, int V>
-RAFT_HD void io_PEER(void *p, CT (&x)[V], long long i, int, const Dims &) {
-  const long long base = i - i % V;
-  const int me = (int)(i % V);
-  for (int j = 0; j < V; ++j) {
-    const long long off = OP == LOAD_ROUTED ? (base + j) * V + me : i * V + j;
-    io1<OP, ST>(p, off, x[j]);
+template <int K, typename ST>
+RAFT_HD void load_leaf(Col<ST> &x, const Args &a, const Block &B, long long i, int t) {
+  constexpr int X = elems(state_kind(K));
+  if constexpr (through(K)) {
+    pass_row<K, ST, X>(a, i);
+  } else {
+    x = Col<ST>{ring_col<K, ST>(B) + t, B.sr};
+    row_to_col<ST, X>((const ST *)a.p[P_STATE_IN + K], i, x.p, B.sr);
   }
 }
+template <int K, typename ST>
+RAFT_HD void load_leaf(Col2<ST> &x, const Args &a, const Block &B, long long i, int t) {
+  constexpr int inner = state_kind(K) == K_INFL ? F : V;
+  x = Col2<ST>{ring_col<K, ST>(B) + t, inner * B.sr, B.sr};
+  row_to_col<ST, elems(state_kind(K))>((const ST *)a.p[P_STATE_IN + K], i, x.p, B.sr);
+}
 
-template <int OP, typename ST, typename CT, int V>
-RAFT_HD void io_ENT(void *p, CT (&x)[V][kMaxE], long long i, int,
-                    const Dims &d) {
-  const long long base = i - i % V;
-  const int me = (int)(i % V);
-  for (int j = 0; j < V; ++j) {
-    const long long row = OP == LOAD_ROUTED ? (base + j) * V + me : i * V + j;
-    for (int k = 0; k < d.e; ++k) io1<OP, ST>(p, row * d.e + k, x[j][k]);
+template <int K, typename ST, typename CT>
+RAFT_HD void store_leaf(const CT &x, const Args &a, long long i) {
+  if constexpr (!through(K)) ((ST *)a.p[P_STATE_OUT + K])[i] = (ST)x;
+}
+template <int K, typename ST, typename CT>
+RAFT_HD void store_leaf(const CT (&x)[V], const Args &a, long long i) {
+  if constexpr (!through(K)) {
+    ST e[V];
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) e[j] = (ST)x[j];
+    RowIO<ST, V>::store((ST *)a.p[P_STATE_OUT + K] + i * V, e);
   }
 }
-
-template <int OP, typename ST, typename CT>
-RAFT_HD void io_WIN(void *p, CT (&x)[kMaxW], long long i, int,
-                    const Dims &d) {
-  for (int s = 0; s < d.w; ++s) io1<OP, ST>(p, i * d.w + s, x[s]);
+template <int K, typename ST>
+RAFT_HD void store_leaf(const Col<ST> &x, const Args &a, long long i) {
+  if constexpr (!through(K))
+    col_to_row<ST, elems(state_kind(K))>((ST *)a.p[P_STATE_OUT + K], i, x.p, x.s);
+}
+template <int K, typename ST>
+RAFT_HD void store_leaf(const Col2<ST> &x, const Args &a, long long i) {
+  col_to_row<ST, elems(state_kind(K))>((ST *)a.p[P_STATE_OUT + K], i, x.p, x.si);
 }
 
-template <int OP, typename ST, typename CT, int V>
-RAFT_HD void io_INFL(void *p, CT (&x)[V][kMaxF], long long i, int,
-                     const Dims &d) {
-  for (int j = 0; j < V; ++j)
-    for (int q = 0; q < d.f; ++q)
-      io1<OP, ST>(p, (i * V + j) * d.f + q, x[j][q]);
+// the narrow->widen round trip of a register leaf between rounds
+template <typename ST, typename CT>
+RAFT_HD void roundtrip(CT &x) {
+  x = (CT)(ST)x;
+}
+template <typename ST, typename CT>
+RAFT_HD void roundtrip(CT (&x)[V]) {
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) x[j] = (CT)(ST)x[j];
+}
+template <typename ST, typename T>
+RAFT_HD void roundtrip(Col<T> &) {}
+template <typename ST, typename T>
+RAFT_HD void roundtrip(Col2<T> &) {}
+
+RAFT_HD void load_lane(Lane &L, const Args &a, const Block &B, long long i, int t) {
+#define RAFT_LOAD(name, dt, shape) load_leaf<SL_##name, RAFT_ST_##dt>(L.name, a, B, i, t);
+  RAFT_STATE_FIELDS(RAFT_LOAD)
+#undef RAFT_LOAD
 }
 
-template <int OP, typename ST, typename CT>
-RAFT_HD void io_READ(void *p, CT (&x)[kMaxR], long long i, int,
-                     const Dims &d) {
-  for (int q = 0; q < d.r; ++q) io1<OP, ST>(p, i * d.r + q, x[q]);
+RAFT_HD void store_lane(const Lane &L, const Args &a, long long i) {
+#define RAFT_STORE(name, dt, shape) store_leaf<SL_##name, RAFT_ST_##dt>(L.name, a, i);
+  RAFT_STATE_FIELDS(RAFT_STORE)
+#undef RAFT_STORE
 }
 
-template <int OP, typename ST, typename CT, int V>
-RAFT_HD void io_READ_PEER(void *p, CT (&x)[kMaxR][V], long long i, int,
-                          const Dims &d) {
-  for (int q = 0; q < d.r; ++q)
-    for (int j = 0; j < V; ++j)
-      io1<OP, ST>(p, (i * d.r + q) * V + j, x[q][j]);
+RAFT_HD void roundtrip_lane(Lane &L) {
+#define RAFT_RT(name, dt, shape) roundtrip<RAFT_ST_##dt>(L.name);
+  RAFT_STATE_FIELDS(RAFT_RT)
+#undef RAFT_RT
 }
 
-#define RAFT_IO(name, dt, shape)                                          \
-  io_##shape<OP, RAFT_ST_##dt>(ptrs ? ptrs[k] : nullptr, obj.name, i, V, \
-                                d);                                      \
-  ++k;
+#define RAFT_LOAD_LANE_LEAF(name, dt, shape) \
+  obj.name = (RAFT_CT_##dt)((const RAFT_ST_##dt *)a.p[k++])[i];
 
-template <int OP, int V>
-RAFT_HD void io_state(void *const *ptrs, Lane<V> &obj, long long i,
-                      const Dims &d) {
-  int k = 0;
-  RAFT_STATE_FIELDS(RAFT_IO)
+RAFT_HD void load_cfg(Cfg &obj, const Args &a, long long i) {
+  int k = P_CFG;
+  RAFT_CFG_FIELDS(RAFT_LOAD_LANE_LEAF)
 }
 
-template <int OP, int V>
-RAFT_HD void io_cfg(void *const *ptrs, Cfg<V> &obj, long long i,
-                    const Dims &d) {
-  int k = 0;
-  RAFT_CFG_FIELDS(RAFT_IO)
+RAFT_HD void load_ops(Ops &obj, const Args &a, long long i) {
+  int k = P_OPS;
+  RAFT_OPS_FIELDS(RAFT_LOAD_LANE_LEAF)
 }
 
-template <int OP, int V>
-RAFT_HD void io_fab(void *const *ptrs, Fab<V> &obj, long long i,
-                    const Dims &d) {
-  int k = 0;
-  RAFT_FABRIC_FIELDS(RAFT_IO)
+#undef RAFT_LOAD_LANE_LEAF
+
+// bit j set where x[j]
+RAFT_HD uint32_t bits(const bool (&x)[V]) {
+  uint32_t m = 0;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) m |= uint32_t(x[j]) << j;
+  return m;
 }
 
-template <int OP, int V>
-RAFT_HD void io_ops(void *const *ptrs, Ops<V> &obj, long long i,
-                    const Dims &d) {
-  int k = 0;
-  RAFT_OPS_FIELDS(RAFT_IO)
-}
-
-#undef RAFT_IO
-
-RAFT_HD int imin(int a, int b) { return a < b ? a : b; }
-RAFT_HD int imax(int a, int b) { return a < b ? b : a; }
+RAFT_HD constexpr int imin(int a, int b) { return a < b ? a : b; }
+RAFT_HD constexpr int imax(int a, int b) { return a < b ? b : a; }
 RAFT_HD int clampi(int x, int lo, int hi) { return imin(imax(x, lo), hi); }
 // Python's floor modulo (torch.remainder) for a positive modulus
 RAFT_HD int fmod_pos(int a, int m) {
@@ -437,32 +781,32 @@ RAFT_HD int fmod_pos(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-template <int V>
-RAFT_HD void clear_fab(Fab<V> &f, const Dims &d) {
+RAFT_HD void clear_fab(const Fab &f) {
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     f.rep_kind[j] = MSG_NONE;
     f.rep_term[j] = f.rep_index[j] = f.rep_log_term[j] = f.rep_commit[j] = 0;
-    f.rep_reject[j] = false;
+    f.rep_reject[j] = 0;
     f.rep_reject_hint[j] = f.rep_n_ents[j] = 0;
-    for (int k = 0; k < d.e; ++k)
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k)
       f.rep_ent_term[j][k] = f.rep_ent_type[j][k] = f.rep_ent_bytes[j][k] = 0;
     f.rep_snap_index[j] = f.rep_snap_term[j] = 0;
     f.hb_kind[j] = MSG_NONE;
     f.hb_term[j] = f.hb_commit[j] = f.hb_context[j] = 0;
     f.vote_kind[j] = MSG_NONE;
     f.vote_term[j] = f.vote_index[j] = f.vote_log_term[j] = 0;
-    f.vote_reject[j] = false;
+    f.vote_reject[j] = 0;
     f.vote_context[j] = 0;
     f.vresp_kind[j] = MSG_NONE;
     f.vresp_term[j] = 0;
-    f.vresp_reject[j] = false;
+    f.vresp_reject[j] = 0;
   }
-  f.self_kind = MSG_NONE;
-  f.self_term = f.self_index = 0;
+  f.self_kind[0] = MSG_NONE;
+  f.self_term[0] = f.self_index[0] = 0;
 }
 
-template <int V>
-RAFT_HD void clear_ops(Ops<V> &o) {
+RAFT_HD void clear_ops(Ops &o) {
   o.hup = o.forget = o.beat = false;
   o.prop_n = o.prop_bytes = o.transfer_to = o.read_ctx = o.prop_cc = 0;
 }
@@ -476,14 +820,15 @@ namespace raft {
 // use; absent fields are 0.
 struct Msg {
   int type, frm, log_term, index, commit, context, n_ents;
-  int ent_term[kMaxE], ent_type[kMaxE], ent_bytes[kMaxE];
+  int ent_term[E], ent_type[E], ent_bytes[E];
   int snap_index, snap_term;
 };
 
 RAFT_HD void clear_msg(Msg &m) {
   m.type = m.frm = m.log_term = m.index = m.commit = 0;
   m.context = m.n_ents = 0;
-  for (int k = 0; k < kMaxE; ++k) m.ent_term[k] = m.ent_type[k] = m.ent_bytes[k] = 0;
+  RAFT_UNROLL
+  for (int k = 0; k < E; ++k) m.ent_term[k] = m.ent_type[k] = m.ent_bytes[k] = 0;
   m.snap_index = m.snap_term = 0;
 }
 
@@ -495,24 +840,23 @@ RAFT_HD uint32_t rng_next(uint32_t rng) { return rng * 1664525u + 1013904223u; }
 
 // One lane's round. Member functions mirror the Python functions of the
 // same name; every masked tensor update becomes `if (mask)` on this lane.
-template <int V>
 struct Round {
-  Lane<V> &L;
-  const Cfg<V> &c;
-  const Fab<V> &in;
-  Fab<V> &out;
-  const Dims &d;
+  Lane &L;
+  const Cfg &c;
+  const Fab &in;
+  const Fab &out;
   int ss;          // self slot (step.self_slot), -1 when untracked
   bool is_self[V];
   bool send_sel[V], send_sie[V];
 
-  RAFT_HD Round(Lane<V> &l, const Cfg<V> &cf, const Fab<V> &inb, Fab<V> &o,
-                const Dims &dims)
-      : L(l), c(cf), in(inb), out(o), d(dims) {
+  RAFT_HD Round(Lane &l, const Cfg &cf, const Fab &inb, const Fab &o)
+      : L(l), c(cf), in(inb), out(o) {
     // step.find_slot(state, state.id): the first hot slot
     ss = -1;
+    RAFT_UNROLL
     for (int j = V - 1; j >= 0; --j)
       if (L.prs_id[j] == L.id && L.prs_id[j] != 0) ss = j;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       is_self[j] = j == ss;
       send_sel[j] = send_sie[j] = false;
@@ -526,11 +870,11 @@ struct Round {
 
   // ---- ops/log.py ----------------------------------------------------
 
-  RAFT_HD int slot_of(int idx) const { return idx & (d.w - 1); }
+  RAFT_HD int slot_of(int idx) const { return idx & (W - 1); }
 
   RAFT_HD int window_index(int s) const {
     const int first = L.snap_index + 1;
-    return first + ((s - first) & (d.w - 1));
+    return first + ((s - first) & (W - 1));
   }
 
   RAFT_HD int term_at(int idx) const {
@@ -565,18 +909,19 @@ struct Round {
     L.applying = imax(L.applying, idx);
   }
 
-  RAFT_HD void append(int prev, const int *et, const int *ety, const int *eb,
-                      int n) {
+  RAFT_HD void append(int prev, const int (&et)[E], const int (&ety)[E],
+                      const int (&eb)[E], int n) {
     const bool act = n > 0;
     err(act && prev < L.committed, ERR_APPEND_BELOW_COMMIT);
-    const bool overflow = act && prev + n - L.snap_index > d.w;
+    const bool overflow = act && prev + n - L.snap_index > W;
     err(overflow, ERR_WINDOW_OVERFLOW);
     const bool ok = act && prev >= L.committed && !overflow;
     if (ok) {
       const int slot0 = slot_of(prev + 1);
-      for (int k = 0; k < d.e; ++k) {
+      RAFT_UNROLL
+      for (int k = 0; k < E; ++k) {
         if (k < n) {
-          const int s = (slot0 + k) % d.w;
+          const int s = (slot0 + k) % W;
           L.log_term[s] = et[k];
           L.log_type[s] = ety[k];
           L.log_bytes[s] = eb[k];
@@ -590,9 +935,10 @@ struct Round {
     L.applying = imin(L.applying, new_last);
   }
 
-  RAFT_HD int find_conflict(int prev, const int *et, int n) const {
+  RAFT_HD int find_conflict(int prev, const int (&et)[E], int n) const {
     int ci = BIG;
-    for (int k = 0; k < d.e; ++k) {
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) {
       const int idx = prev + 1 + k;
       if (k < n && term_at(idx) != et[k]) ci = imin(ci, idx);
     }
@@ -601,20 +947,26 @@ struct Round {
 
   // returns lastnewi (0 when not ok)
   RAFT_HD int maybe_append(int index, int log_term, int committed,
-                           const int *et, const int *ety, const int *eb,
-                           int n, bool &ok) {
+                           const int (&et)[E], const int (&ety)[E],
+                           const int (&eb)[E], int n, bool &ok) {
     ok = term_at(index) == log_term;
     const int lastnewi = index + n;
     const int ci = find_conflict(index, et, n);
     err(ok && ci != 0 && ci <= L.committed, ERR_CONFLICT_BELOW_COMMIT);
     const int shift = ci > 0 ? ci - index - 1 : 0;
-    int st[kMaxE], sty[kMaxE], sb[kMaxE];
-    const int s0 = fmod_pos(shift, d.e);
-    for (int k = 0; k < d.e; ++k) {
-      const int src = (s0 + k) % d.e;
-      st[k] = et[src];
-      sty[k] = ety[src];
-      sb[k] = eb[src];
+    int st[E], sty[E], sb[E];
+    const int s0 = fmod_pos(shift, E);
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) {  // a roll by s0, as masks over the E entries
+      const int src = (s0 + k) % E;
+      st[k] = sty[k] = sb[k] = 0;
+      RAFT_UNROLL
+      for (int q = 0; q < E; ++q) {
+        const int m = -(int)(q == src);
+        st[k] |= et[q] & m;
+        sty[k] |= ety[q] & m;
+        sb[k] |= eb[q] & m;
+      }
     }
     const int n_keep = (ok && ci > 0) ? n - shift : 0;
     append(ci > 0 ? ci - 1 : 0, st, sty, sb, n_keep);
@@ -625,7 +977,8 @@ struct Round {
   // the rollback index of find_conflict_by_term / fused._fcbt_nv
   RAFT_HD int conflict_index(int index, int term) const {
     int best = -1;
-    for (int s = 0; s < d.w; ++s) {
+    RAFT_UNROLL
+    for (int s = 0; s < W; ++s) {
       const int idx = window_index(s);
       if (idx <= L.last && idx <= index && L.log_term[s] <= term)
         best = imax(best, idx);
@@ -653,7 +1006,8 @@ struct Round {
 
   RAFT_HD void restore_snapshot(int idx, int term, bool mask) {
     if (!mask) return;
-    for (int s = 0; s < d.w; ++s) L.log_term[s] = L.log_type[s] = L.log_bytes[s] = 0;
+    RAFT_UNROLL
+    for (int s = 0; s < W; ++s) L.log_term[s] = L.log_type[s] = L.log_bytes[s] = 0;
     L.last = L.stabled = L.committed = L.snap_index = idx;
     L.snap_term = term;
     L.pending_snap_index = idx;
@@ -664,7 +1018,8 @@ struct Round {
 
   RAFT_HD int bytes_between(int lo, int hi) const {
     int sum = 0;
-    for (int s = 0; s < d.w; ++s) {
+    RAFT_UNROLL
+    for (int s = 0; s < W; ++s) {
       const int idx = window_index(s);
       if (idx <= L.last && idx > lo && idx <= hi) sum += L.log_bytes[s];
     }
@@ -673,7 +1028,8 @@ struct Round {
 
   RAFT_HD bool has_unapplied_conf_changes() const {
     bool any = false;
-    for (int s = 0; s < d.w; ++s) {
+    RAFT_UNROLL
+    for (int s = 0; s < W; ++s) {
       const int idx = window_index(s);
       if (idx <= L.last && idx > L.applied && idx <= L.committed &&
           L.log_type[s] != 0)
@@ -715,7 +1071,7 @@ struct Round {
   }
 
   RAFT_HD bool inflights_full(int j) const {
-    const int cap = imin(c.max_inflight, d.f);
+    const int cap = imin(c.max_inflight, F);
     const bool cap_hit = L.infl_count[j] >= cap;
     const int max_bytes = c.max_inflight_bytes;
     const bool bytes_hit = max_bytes != 0 && L.infl_total_bytes[j] >= max_bytes;
@@ -725,7 +1081,7 @@ struct Round {
   RAFT_HD void inflights_add(int j, bool sel, int index, int bytes) {
     sel = sel && !inflights_full(j);
     if (!sel) return;
-    const int pos = fmod_pos(L.infl_start[j] + L.infl_count[j], d.f);
+    const int pos = fmod_pos(L.infl_start[j] + L.infl_count[j], F);
     L.infl_index[j][pos] = index;
     L.infl_bytes[j][pos] = bytes;
     L.infl_count[j] += 1;
@@ -734,9 +1090,10 @@ struct Round {
 
   RAFT_HD void inflights_free_le(int j, bool sel, int to) {
     int n_free = 0, b_free = 0;
-    for (int k = 0; k < d.f; ++k) {
+    RAFT_UNROLL
+    for (int k = 0; k < F; ++k) {
       const bool live = k < L.infl_count[j];
-      const int pos = fmod_pos(L.infl_start[j] + k, d.f);
+      const int pos = fmod_pos(L.infl_start[j] + k, F);
       if (live && L.infl_index[j][pos] <= to) {
         n_free += 1;
         b_free += L.infl_bytes[j][pos];
@@ -744,7 +1101,7 @@ struct Round {
     }
     if (!sel) return;
     const int new_count = L.infl_count[j] - n_free;
-    L.infl_start[j] = new_count == 0 ? 0 : fmod_pos(L.infl_start[j] + n_free, d.f);
+    L.infl_start[j] = new_count == 0 ? 0 : fmod_pos(L.infl_start[j] + n_free, F);
     L.infl_count[j] = new_count;
     L.infl_total_bytes[j] -= b_free;
   }
@@ -792,6 +1149,7 @@ struct Round {
 
   static RAFT_HD int majority_vote(const int (&votes)[V], const bool (&mask)[V]) {
     int n = 0, granted = 0, missing = 0;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       n += mask[j];
       granted += mask[j] && votes[j] == GRANTED;
@@ -818,7 +1176,10 @@ struct Round {
   // ---- ops/step.py ---------------------------------------------------
 
   RAFT_HD bool promotable() const {
-    const bool is_lr = L.learners[ss < 0 ? 0 : ss];
+    // learners[max(ss, 0)], through a bit mask: a select among the array's
+    // elements would be folded back into a data-dependent index, which
+    // keeps the whole carry out of registers
+    const bool is_lr = (bits(L.learners) >> imax(ss, 0)) & 1u;
     return ss >= 0 && !is_lr && L.pending_snap_index == 0;
   }
 
@@ -834,14 +1195,18 @@ struct Round {
     L.heartbeat_elapsed = 0;
     L.randomized_election_timeout = rand_to;
     L.lead_transferee = 0;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) L.votes[j] = PENDING;
     L.pending_conf_index = 0;
     L.uncommitted_size = 0;
-    for (int q = 0; q < d.r; ++q) {
+    RAFT_UNROLL
+    for (int q = 0; q < R; ++q) {
       L.ro_ctx[q] = L.ro_from[q] = L.ro_index[q] = L.ro_seq[q] = 0;
+      RAFT_UNROLL
       for (int j = 0; j < V; ++j) L.ro_acks[q][j] = false;
     }
     L.ro_next_seq = 1;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       if (L.prs_id[j] == 0) continue;
       reset_state(j, PROBE);
@@ -869,6 +1234,7 @@ struct Round {
 
   RAFT_HD void become_pre_candidate(bool mask) {
     if (!mask) return;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) L.votes[j] = PENDING;
     L.lead = 0;
     L.state = PRE_CANDIDATE;
@@ -876,21 +1242,23 @@ struct Round {
 
   RAFT_HD void put_self(bool mask, int type, int term, int index) {
     if (!mask) return;
-    out.self_kind = type;
-    out.self_term = term;
-    out.self_index = index;
+    out.self_kind[0] = type;
+    out.self_term[0] = term;
+    out.self_index[0] = index;
   }
 
   // leader local append + self-ack; entry terms are the lane's term
-  RAFT_HD bool append_entry(bool mask, const int *ety, const int *eb, int n) {
+  RAFT_HD bool append_entry(bool mask, const int (&ety)[E], const int (&eb)[E], int n) {
     int sz = 0;
-    for (int k = 0; k < d.e; ++k) sz += eb[k];
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) sz += eb[k];
     const bool refuse = L.uncommitted_size > 0 && sz > 0 &&
                         L.uncommitted_size + sz > c.max_uncommitted_size;
-    const bool ok = mask && !refuse && L.last + n - L.snap_index <= d.w;
+    const bool ok = mask && !refuse && L.last + n - L.snap_index <= W;
     if (ok) L.uncommitted_size += sz;
-    int stamped[kMaxE];
-    for (int k = 0; k < kMaxE; ++k) stamped[k] = L.term;
+    int stamped[E];
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) stamped[k] = L.term;
     append(L.last, stamped, ety, eb, ok ? n : 0);
     put_self(ok, MSG_APP_RESP, L.term, L.last);
     return ok;
@@ -903,12 +1271,13 @@ struct Round {
       L.state = LEADER;
       L.pending_conf_index = L.last;
     }
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       const bool sel_self = mask && is_self[j];
       become_replicate(j, sel_self);
       if (sel_self) L.pr_recent_active[j] = true;
     }
-    int zeros[kMaxE] = {0};
+    int zeros[E] = {0};
     append_entry(mask, zeros, zeros, mask ? 1 : 0);
   }
 
@@ -916,27 +1285,30 @@ struct Round {
     const bool has_avail = L.avail_snap_index != 0;
     const int send_si = has_avail ? L.avail_snap_index : L.snap_index;
     const int send_st = has_avail ? L.avail_snap_term : L.snap_term;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       bool sel = send_sel[j] && L.prs_id[j] != 0 && !is_self[j] && !is_paused(j);
       const int prev = L.pr_next[j] - 1;
       const int prev_term = term_at(prev);
       const bool throttled = L.pr_state[j] == REPLICATE && inflights_full(j);
       const int n_avail = imax(L.last - prev, 0);
-      int n_send = throttled ? 0 : imin(n_avail, d.e);
-      const int slot0 = L.pr_next[j] & (d.w - 1);
-      int et[kMaxE], ety[kMaxE], eb[kMaxE];
+      int n_send = throttled ? 0 : imin(n_avail, E);
+      const int slot0 = L.pr_next[j] & (W - 1);
+      int et[E], ety[E], eb[E];
       int cum = 0, n_fit = 0;
-      for (int k = 0; k < d.e; ++k) {
-        const int s = (slot0 + k) % d.w;
+      RAFT_UNROLL
+      for (int k = 0; k < E; ++k) {
+        const int s = (slot0 + k) % W;
         et[k] = L.log_term[s];
         ety[k] = L.log_type[s];
         eb[k] = k < n_send ? L.log_bytes[s] : 0;
         cum += eb[k];
         n_fit += cum <= c.max_size_per_msg;
       }
-      n_send = n_send > 0 ? clampi(imin(n_send, n_fit), 1, d.e) : 0;
+      n_send = n_send > 0 ? clampi(imin(n_send, n_fit), 1, E) : 0;
       int sent_bytes = 0;
-      for (int k = 0; k < d.e; ++k) {
+      RAFT_UNROLL
+      for (int k = 0; k < E; ++k) {
         if (k >= n_send) et[k] = ety[k] = eb[k] = 0;
         sent_bytes += eb[k];
       }
@@ -959,7 +1331,8 @@ struct Round {
         out.rep_log_term[j] = prev_term;
         out.rep_commit[j] = L.committed;
         out.rep_n_ents[j] = n_send;
-        for (int k = 0; k < d.e; ++k) {
+        RAFT_UNROLL
+        for (int k = 0; k < E; ++k) {
           out.rep_ent_term[j][k] = et[k];
           out.rep_ent_type[j][k] = ety[k];
           out.rep_ent_bytes[j][k] = eb[k];
@@ -970,6 +1343,7 @@ struct Round {
   }
 
   RAFT_HD void bcast_heartbeat(bool mask, int ctx) {
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       if (!(mask && L.prs_id[j] != 0 && !is_self[j])) continue;
       out.hb_kind[j] = MSG_HEARTBEAT;
@@ -988,9 +1362,11 @@ struct Round {
     const int vote_t = pre ? MSG_PRE_VOTE : MSG_VOTE;
     const int resp_t = pre ? MSG_PRE_VOTE_RESP : MSG_VOTE_RESP;
     bool self_voter = false;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) self_voter = self_voter || (voter(j) && is_self[j]);
     put_self(mask && self_voter, resp_t, ask_term, 0);
     const int lt = last_term();
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       if (!(mask && voter(j) && !is_self[j])) continue;
       out.vote_kind[j] = vote_t;
@@ -1064,7 +1440,9 @@ struct Round {
 // ---- ops/fused.py fused_round, for one lane ----------------------------
 
 struct Events {
-  int v[kPartUsed];
+  int v[kCounters];  // counter deltas
+  int bucket;        // latency bucket of a sample closed this round, else -1
+  int lat;           // its latency
 };
 
 struct Sampler {  // metrics/device.py samp_index / samp_round of this lane
@@ -1074,16 +1452,17 @@ struct Sampler {  // metrics/device.py samp_index / samp_round of this lane
 // One round of lane `L` on its routed inbox `in` (mute cut applied) into
 // the cleared outbox `out`. round_ctr is the metrics round counter before
 // this round; ev gets this lane's metric deltas.
-template <int V>
-RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
-                              const Ops<V> &ops, bool mute_self,
-                              const bool (&peer_mute)[V], int flags, int lag,
-                              int round_ctr, Sampler &samp, Fab<V> &out,
-                              Events &ev, const Dims &d) {
-  Round<V> R(L, c, in, out, d);
-  const bool *is_self = R.is_self;
+RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const Fab &in, const Ops &ops,
+                              uint32_t cut, int flags, int lag,
+                              int round_ctr, Sampler &samp, const Fab &out,
+                              Events &ev) {
+  Round rd(L, c, in, out);
+  const bool *is_self = rd.is_self;
   const bool metrics = flags & F_METRICS;
-  for (int x = 0; x < kPartUsed; ++x) ev.v[x] = 0;
+  RAFT_UNROLL
+  for (int x = 0; x < kCounters; ++x) ev.v[x] = 0;
+  ev.bucket = -1;
+  ev.lat = 0;
   const int lead0 = L.lead, committed0 = L.committed;
 
   // ---- tick (raft.go:823-862) ----
@@ -1092,7 +1471,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     const bool is_leader0 = L.state == LEADER;
     int ee = L.election_elapsed + 1;
     int he = is_leader0 ? L.heartbeat_elapsed + 1 : L.heartbeat_elapsed;
-    fire_hup = !is_leader0 && R.promotable() && ee >= L.randomized_election_timeout;
+    fire_hup = !is_leader0 && rd.promotable() && ee >= L.randomized_election_timeout;
     const bool lead_etick = is_leader0 && ee >= c.election_tick;
     fire_cq = lead_etick && c.check_quorum;
     if (fire_hup || lead_etick) ee = 0;
@@ -1105,19 +1484,21 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 
   // ---- presence ----
   bool rep_p[V], hb_p[V], vote_p[V], vresp_p[V];
+  RAFT_UNROLL
   for (int i = 0; i < V; ++i) {
     rep_p[i] = in.rep_kind[i] != MSG_NONE;
     hb_p[i] = in.hb_kind[i] != MSG_NONE;
     vote_p[i] = in.vote_kind[i] != MSG_NONE;
     vresp_p[i] = in.vresp_kind[i] != MSG_NONE;
   }
-  const bool self_p = in.self_kind != MSG_NONE;
+  const bool self_p = in.self_kind[0] != MSG_NONE;
 
   // ---- term ladder (raft.go:1053-1139) ----
   const bool in_lease =
       c.check_quorum && L.lead != 0 && L.election_elapsed < c.election_tick;
   bool is_vreq[V], lease_ignored[V];
   int t_new = 0;
+  RAFT_UNROLL
   for (int i = 0; i < V; ++i) {
     const bool keep_vote = in.vote_kind[i] == MSG_PRE_VOTE;
     const bool keep_vresp = in.vresp_kind[i] == MSG_PRE_VOTE_RESP && !in.vresp_reject[i];
@@ -1130,19 +1511,21 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     t_new = imax(t_new, (vote_p[i] && !keep_vote && !lease_ignored[i]) ? in.vote_term[i] : 0);
     t_new = imax(t_new, (vresp_p[i] && !keep_vresp) ? in.vresp_term[i] : 0);
   }
-  t_new = imax(t_new, (self_p && in.self_kind == MSG_APP_RESP) ? in.self_term : 0);
+  t_new = imax(t_new, (self_p && in.self_kind[0] == MSG_APP_RESP) ? in.self_term[0] : 0);
   const bool step_down = t_new > L.term;
   int ldr_member = 0;
+  RAFT_UNROLL
   for (int i = 0; i < V; ++i) {
     const bool from_rep = rep_p[i] && in.rep_term[i] == t_new &&
                           (in.rep_kind[i] == MSG_APP || in.rep_kind[i] == MSG_SNAP);
     const bool from_hb = hb_p[i] && in.hb_term[i] == t_new && in.hb_kind[i] == MSG_HEARTBEAT;
     ldr_member = imax(ldr_member, (from_rep || from_hb) ? i + 1 : 0);
   }
-  R.become_follower(step_down, t_new, ldr_member);
+  rd.become_follower(step_down, t_new, ldr_member);
 
   // lower-term handling (raft.go:1087-1139)
   bool rep_live[V], hb_live[V], vote_live[V];
+  RAFT_UNROLL
   for (int i = 0; i < V; ++i) {
     const bool low_rep = rep_p[i] && in.rep_term[i] < L.term;
     const bool low_hb = hb_p[i] && in.hb_term[i] < L.term;
@@ -1167,6 +1550,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   // ---- winning append-family message (raft.go:1732-1795) ----
   bool any_app = false;
   int win = 0;
+  RAFT_UNROLL
   for (int i = V - 1; i >= 0; --i) {
     const bool cell = rep_live[i] &&
                       (in.rep_kind[i] == MSG_APP || in.rep_kind[i] == MSG_SNAP) &&
@@ -1184,7 +1568,8 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     m.log_term = in.rep_log_term[win];
     m.commit = in.rep_commit[win];
     m.n_ents = in.rep_n_ents[win];
-    for (int k = 0; k < d.e; ++k) {
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) {
       m.ent_term[k] = in.rep_ent_term[win][k];
       m.ent_type[k] = in.rep_ent_type[win][k];
       m.ent_bytes[k] = in.rep_ent_bytes[win][k];
@@ -1195,14 +1580,14 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   const int m_frm = any_app ? win + 1 : 0;
   m.frm = m_frm;
   const bool is_cand = L.state == CANDIDATE || L.state == PRE_CANDIDATE;
-  R.become_follower(any_app && is_cand, L.term, m_frm);
+  rd.become_follower(any_app && is_cand, L.term, m_frm);
   if (any_app && L.state == FOLLOWER) {
     L.lead = m_frm;
     L.election_elapsed = 0;
   }
-  R.handle_append_entries(any_app && m.type == MSG_APP && L.state == FOLLOWER, m);
+  rd.handle_append_entries(any_app && m.type == MSG_APP && L.state == FOLLOWER, m);
   const bool is_snap = any_app && m.type == MSG_SNAP;
-  R.handle_snapshot(is_snap, m);
+  rd.handle_snapshot(is_snap, m);
   if (is_snap && L.pending_snap_index != 0) {
     L.applied = imax(L.applied, L.pending_snap_index);
     L.applying = imax(L.applying, L.pending_snap_index);
@@ -1213,6 +1598,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   // ---- winning heartbeat (raft.go:1772-1775) ----
   bool any_hb = false;
   int hwin = 0;
+  RAFT_UNROLL
   for (int i = V - 1; i >= 0; --i) {
     if (hb_live[i] && in.hb_kind[i] == MSG_HEARTBEAT && in.hb_term[i] == L.term) {
       any_hb = true;
@@ -1228,19 +1614,20 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   }
   const int h_frm = any_hb ? hwin + 1 : 0;
   h.frm = h_frm;
-  R.become_follower(any_hb && is_cand, L.term, h_frm);
+  rd.become_follower(any_hb && is_cand, L.term, h_frm);
   if (any_hb && L.state == FOLLOWER) {
     L.lead = h_frm;
     L.election_elapsed = 0;
   }
-  R.handle_heartbeat(any_hb && L.state == FOLLOWER, h);
+  rd.handle_heartbeat(any_hb && L.state == FOLLOWER, h);
 
   // ---- vote casting: grant at most one candidate (raft.go:1164-1212) ----
   {
-    const int lt = R.last_term();
+    const int lt = rd.last_term();
     bool grantable[V], is_pv[V], vreq_cell[V];
     bool any_real = false;
     int gwin = 0;
+    RAFT_UNROLL
     for (int i = V - 1; i >= 0; --i) {
       vreq_cell[i] = vote_live[i] && is_vreq[i];
       is_pv[i] = in.vote_kind[i] == MSG_PRE_VOTE;
@@ -1258,6 +1645,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       }
     }
     bool real_grant = false;
+    RAFT_UNROLL
     for (int i = 0; i < V; ++i) {
       const bool real_cell = grantable[i] && !is_pv[i] && i == gwin && any_real;
       const bool grant = (grantable[i] && is_pv[i]) || real_cell;
@@ -1281,6 +1669,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 
   // ---- TimeoutNow -> transfer campaign (raft.go:1713-1719) ----
   bool ton = false;
+  RAFT_UNROLL
   for (int i = 0; i < V; ++i)
     ton = ton || (vote_live[i] && in.vote_kind[i] == MSG_TIMEOUT_NOW &&
                   in.vote_term[i] == L.term);
@@ -1288,62 +1677,67 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 
   // ---- leader fan-in ----
   bool is_leader = L.state == LEADER;
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     const bool in_snap = is_leader && L.pr_state[j] == SNAPSHOT;
-    if ((flags & F_MUTE) && in_snap && (mute_self || peer_mute[j]))
+    if ((flags & F_MUTE) && in_snap && ((cut >> j) & 1u))
       L.pr_pending_snapshot[j] = 0;
-    R.become_probe(j, in_snap);
+    rd.become_probe(j, in_snap);
     if (in_snap) L.pr_msg_app_flow_paused[j] = true;
   }
 
   // MsgAppResp cells, including the self-ack (raft.go:1333-1526)
-  const bool self_ar = self_p && in.self_kind == MSG_APP_RESP &&
-                       in.self_term == L.term && is_leader;
+  const bool self_ar = self_p && in.self_kind[0] == MSG_APP_RESP &&
+                       in.self_term[0] == L.term && is_leader;
   bool ar_cell[V], acc_cell[V], advanced[V], old_paused[V];
   int ar_index[V];
   bool advanced_lane = false;
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     ar_cell[j] = rep_live[j] && in.rep_kind[j] == MSG_APP_RESP &&
                  in.rep_term[j] == L.term && is_leader;
     const bool self_ar_cell = self_ar && is_self[j];
     const bool ar_all = ar_cell[j] || self_ar_cell;
-    ar_index[j] = self_ar_cell ? in.self_index : in.rep_index[j];
+    ar_index[j] = self_ar_cell ? in.self_index[0] : in.rep_index[j];
     if (ar_all) L.pr_recent_active[j] = true;
     const bool rej_cell = ar_cell[j] && in.rep_reject[j];
     acc_cell[j] = ar_all && !rej_cell;
     const int next_probe = in.rep_log_term[j] > 0
-                               ? R.conflict_index(in.rep_reject_hint[j], in.rep_log_term[j])
+                               ? rd.conflict_index(in.rep_reject_hint[j], in.rep_log_term[j])
                                : in.rep_reject_hint[j];
-    const bool decreased = R.maybe_decr_to(j, rej_cell, ar_index[j], next_probe);
-    R.become_probe(j, decreased && L.pr_state[j] == REPLICATE);
-    R.want_send(j, decreased, true);
-    old_paused[j] = R.is_paused(j);
-    const bool updated = R.maybe_update(j, acc_cell[j], ar_index[j]);
+    const bool decreased = rd.maybe_decr_to(j, rej_cell, ar_index[j], next_probe);
+    rd.become_probe(j, decreased && L.pr_state[j] == REPLICATE);
+    rd.want_send(j, decreased, true);
+    old_paused[j] = rd.is_paused(j);
+    const bool updated = rd.maybe_update(j, acc_cell[j], ar_index[j]);
     const bool probe_refresh = acc_cell[j] && L.pr_match[j] == ar_index[j] &&
                                L.pr_state[j] == PROBE;
     advanced[j] = updated || probe_refresh;
-    R.become_replicate(j, advanced[j] && L.pr_state[j] == PROBE);
+    rd.become_replicate(j, advanced[j] && L.pr_state[j] == PROBE);
     const bool from_snap = advanced[j] && L.pr_state[j] == SNAPSHOT &&
                            L.pr_match[j] + 1 >= L.snap_index + 1;
-    R.become_probe(j, from_snap);
-    R.become_replicate(j, from_snap);
-    R.inflights_free_le(j, advanced[j] && L.pr_state[j] == REPLICATE, ar_index[j]);
+    rd.become_probe(j, from_snap);
+    rd.become_replicate(j, from_snap);
+    rd.inflights_free_le(j, advanced[j] && L.pr_state[j] == REPLICATE, ar_index[j]);
     advanced_lane = advanced_lane || advanced[j];
   }
 
   // the commit index: one joint-quorum reduction per lane
   {
     int match[V];
-    for (int j = 0; j < V; ++j) match[j] = R.voter(j) ? L.pr_match[j] : 0;
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) match[j] = rd.voter(j) ? L.pr_match[j] : 0;
     const int mci = joint_committed<V>(match, L.voters_in, L.voters_out);
-    const bool committed_adv = R.maybe_commit(advanced_lane ? mci : 0, L.term);
+    const bool committed_adv = rd.maybe_commit(advanced_lane ? mci : 0, L.term);
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
-      R.want_send(j, committed_adv, true);
-      R.want_send(j, advanced[j] && !committed_adv && !is_self[j], old_paused[j]);
+      rd.want_send(j, committed_adv, true);
+      rd.want_send(j, advanced[j] && !committed_adv && !is_self[j], old_paused[j]);
     }
   }
 
   // leadership transfer completion (raft.go:1519-1524)
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     if (acc_cell[j] && advanced[j] && j + 1 == L.lead_transferee &&
         L.pr_match[j] == L.last) {
@@ -1354,6 +1748,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 
   // MsgHeartbeatResp cells (raft.go:1527-1561)
   bool hr_cell[V];
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     hr_cell[j] = hb_live[j] && in.hb_kind[j] == MSG_HEARTBEAT_RESP &&
                  in.hb_term[j] == L.term && is_leader;
@@ -1361,32 +1756,37 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       L.pr_recent_active[j] = true;
       L.pr_msg_app_flow_paused[j] = false;
     }
-    R.want_send(j, hr_cell[j] && (L.pr_match[j] < L.last || L.pr_state[j] == PROBE), true);
+    rd.want_send(j, hr_cell[j] && (L.pr_match[j] < L.last || L.pr_state[j] == PROBE), true);
   }
 
   // ReadIndex acks via heartbeat ctx (raft.go:1548-1561)
   {
-    const int r = d.r;
-    bool hit_any[kMaxR], release[kMaxR], put[kMaxR];
-    bool acks[kMaxR][V];
+    const int r = R;
+    bool hit_any[R], release[R], put[R];
+    bool acks[R][V];
     int won_seq = -1;
+    RAFT_UNROLL
     for (int q = 0; q < r; ++q) {
       hit_any[q] = false;
       int ro_votes[V];
+      RAFT_UNROLL
       for (int i = 0; i < V; ++i) {
         const bool hit = hr_cell[i] && L.ro_ctx[q] == in.hb_context[i] && L.ro_ctx[q] != 0;
         hit_any[q] = hit_any[q] || hit;
         acks[q][i] = L.ro_acks[q][i] || hit;
         ro_votes[i] = acks[q][i] ? GRANTED : PENDING;
       }
-      const bool won = L.ro_ctx[q] != 0 && R.joint_vote(ro_votes) == VOTE_WON && hit_any[q];
+      const bool won = L.ro_ctx[q] != 0 && rd.joint_vote(ro_votes) == VOTE_WON && hit_any[q];
       won_seq = imax(won_seq, won ? L.ro_seq[q] : -1);
     }
+    RAFT_UNROLL
     for (int q = 0; q < r; ++q) release[q] = L.ro_ctx[q] != 0 && L.ro_seq[q] <= won_seq;
-    int dst_c[kMaxR];
+    int dst_c[R];
     int n_put = 0;
+    RAFT_UNROLL
     for (int q = 0; q < r; ++q) {
       int rank = 0;
+      RAFT_UNROLL
       for (int p = 0; p < r; ++p) rank += release[p] && L.ro_seq[p] < L.ro_seq[q];
       const int dst_slot = L.rs_count + rank;
       put[q] = release[q] && dst_slot < r;
@@ -1394,10 +1794,12 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       n_put += put[q];
     }
     // ohm.scatter_set: a target slot takes the sum of the values put there
-    int new_ctx[kMaxR], new_index[kMaxR];
+    int new_ctx[R], new_index[R];
+    RAFT_UNROLL
     for (int t = 0; t < r; ++t) {
       bool hit = false;
       int vc = 0, vi = 0;
+      RAFT_UNROLL
       for (int q = 0; q < r; ++q) {
         if (put[q] && dst_c[q] == t) {
           hit = true;
@@ -1408,13 +1810,16 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       new_ctx[t] = hit ? vc : L.rs_ctx[t];
       new_index[t] = hit ? vi : L.rs_index[t];
     }
+    RAFT_UNROLL
     for (int t = 0; t < r; ++t) {
       L.rs_ctx[t] = new_ctx[t];
       L.rs_index[t] = new_index[t];
     }
     L.rs_count = imin(L.rs_count + n_put, r);
+    RAFT_UNROLL
     for (int q = 0; q < r; ++q) {
       if (put[q]) L.ro_ctx[q] = L.ro_from[q] = L.ro_index[q] = L.ro_seq[q] = 0;
+      RAFT_UNROLL
       for (int i = 0; i < V; ++i) L.ro_acks[q][i] = put[q] ? false : acks[q][i];
     }
     ev.v[C_READ_INDEX_SERVED] += n_put;
@@ -1424,34 +1829,37 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   bool pre_won, real_won;
   {
     const int my_resp = L.state == PRE_CANDIDATE ? MSG_PRE_VOTE_RESP : MSG_VOTE_RESP;
-    const bool self_vr = self_p && in.self_kind == my_resp && is_cand;
+    const bool self_vr = self_p && in.self_kind[0] == my_resp && is_cand;
     bool any_vr = false;
+    RAFT_UNROLL
     for (int i = 0; i < V; ++i) {
       const bool live = vresp_p[i] && !(in.vresp_term[i] < L.term);
       const bool vr_cell = live && in.vresp_kind[i] == my_resp && is_cand;
       const bool vr_all = vr_cell || (self_vr && is_self[i]);
       const bool vr_rej = vr_cell && in.vresp_reject[i];
-      if (vr_all && R.voter(i)) L.votes[i] = vr_rej ? REJECTED : GRANTED;
+      if (vr_all && rd.voter(i)) L.votes[i] = vr_rej ? REJECTED : GRANTED;
       any_vr = any_vr || vr_all;
     }
     int votes[V];
+    RAFT_UNROLL
     for (int i = 0; i < V; ++i) votes[i] = L.votes[i];
-    const int res = R.joint_vote(votes);
+    const int res = rd.joint_vote(votes);
     const bool tallied = any_vr && is_cand;
     const bool won = tallied && res == VOTE_WON;
     const bool lost = tallied && res == VOTE_LOST;
     pre_won = won && L.state == PRE_CANDIDATE;
     real_won = won && L.state == CANDIDATE;
-    R.become_leader(real_won);
-    for (int j = 0; j < V; ++j) R.want_send(j, real_won, true);
-    R.become_follower(lost, L.term, 0);
+    rd.become_leader(real_won);
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) rd.want_send(j, real_won, true);
+    rd.become_follower(lost, L.term, 0);
   }
 
   // ---- local inputs ----
   int ctype = c.pre_vote ? PRE_ELECTION : ELECTION;
   if (ton) ctype = TRANSFER;
   if (pre_won) ctype = ELECTION;
-  const bool hup_fired = R.hup(fire_hup || ops.hup || ton || pre_won, ctype);
+  const bool hup_fired = rd.hup(fire_hup || ops.hup || ton || pre_won, ctype);
   ev.v[C_ELECTIONS_STARTED] += hup_fired;
   ev.v[C_ELECTIONS_WON] += real_won;
 
@@ -1460,10 +1868,12 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   {
     const bool cq = fire_cq && is_leader;
     int active[V];
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j)
       active[j] = (L.pr_recent_active[j] || is_self[j]) ? GRANTED : REJECTED;
-    const bool alive = R.joint_vote(active) == VOTE_WON;
-    R.become_follower(cq && !alive, L.term, 0);
+    const bool alive = rd.joint_vote(active) == VOTE_WON;
+    rd.become_follower(cq && !alive, L.term, 0);
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j)
       if (cq && !is_self[j]) L.pr_recent_active[j] = false;
   }
@@ -1473,7 +1883,8 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   {
     int best = -1, newest = 0;
     bool any_live = false;
-    for (int q = 0; q < d.r; ++q) {
+    RAFT_UNROLL
+    for (int q = 0; q < R; ++q) {
       const int key = L.ro_ctx[q] != 0 ? L.ro_seq[q] : -1;
       any_live = any_live || L.ro_ctx[q] != 0;
       if (q == 0 || key > best) {
@@ -1482,19 +1893,21 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       }
     }
     const int beat_ctx = any_live ? L.ro_ctx[newest] : 0;
-    R.bcast_heartbeat((fire_beat || ops.beat) && is_leader, beat_ctx);
+    rd.bcast_heartbeat((fire_beat || ops.beat) && is_leader, beat_ctx);
   }
 
   // proposals (raft.go:1244-1302)
   {
     const int prop_n = (flags & F_AUTO_PROPOSE) ? imax(ops.prop_n, is_leader ? 1 : 0)
                                                 : ops.prop_n;
-    const bool prop = prop_n > 0 && is_leader && L.lead_transferee == 0 && R.ss >= 0;
-    const int pn = imin(prop_n, d.e);
-    int zeros[kMaxE] = {0}, eb[kMaxE];
-    for (int k = 0; k < d.e; ++k) eb[k] = (k < pn && prop) ? ops.prop_bytes : 0;
-    const bool appended = R.append_entry(prop, zeros, eb, pn);
-    for (int j = 0; j < V; ++j) R.want_send(j, appended, true);
+    const bool prop = prop_n > 0 && is_leader && L.lead_transferee == 0 && rd.ss >= 0;
+    const int pn = imin(prop_n, E);
+    int zeros[E] = {0}, eb[E];
+    RAFT_UNROLL
+    for (int k = 0; k < E; ++k) eb[k] = (k < pn && prop) ? ops.prop_bytes : 0;
+    const bool appended = rd.append_entry(prop, zeros, eb, pn);
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) rd.want_send(j, appended, true);
     ev.v[C_PROPOSALS] += appended ? pn : 0;
     ev.v[C_PROPOSALS_DROPPED] += prop_n > 0 && !appended;
     if (metrics && appended && samp.index == 0) {  // metrics.arm_sample
@@ -1505,17 +1918,19 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 
   // conf-change proposal (raft.go:1259-1301)
   {
-    const bool want_cc = ops.prop_cc > 0 && is_leader && L.lead_transferee == 0 && R.ss >= 0;
+    const bool want_cc = ops.prop_cc > 0 && is_leader && L.lead_transferee == 0 && rd.ss >= 0;
     bool joint = false;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) joint = joint || L.voters_out[j];
     const bool pending_cc = L.pending_conf_index > L.applied;
     const bool refused = pending_cc || (ops.prop_cc == 2 ? !joint : joint);
     const bool cc_ok = want_cc && !refused;
-    int zeros[kMaxE] = {0}, cc_type[kMaxE] = {0};
+    int zeros[E] = {0}, cc_type[E] = {0};
     cc_type[0] = cc_ok ? ENTRY_CONF_CHANGE_V2 : 0;
-    const bool cc_appended = R.append_entry(want_cc, cc_type, zeros, 1);
+    const bool cc_appended = rd.append_entry(want_cc, cc_type, zeros, 1);
     if (cc_appended && cc_ok) L.pending_conf_index = L.last;
-    for (int j = 0; j < V; ++j) R.want_send(j, cc_appended, true);
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) rd.want_send(j, cc_appended, true);
     ev.v[C_PROPOSALS] += cc_appended;
     ev.v[C_PROPOSALS_DROPPED] += want_cc && (refused || !cc_appended);
   }
@@ -1524,12 +1939,17 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
   {
     const int tt = ops.transfer_to;
     const int t_slot = clampi(tt - 1, 0, V - 1);
+    uint32_t known = 0;  // prs_id[t_slot] != 0 && !learners[t_slot] (see promotable)
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) known |= uint32_t(L.prs_id[j] != 0 && !L.learners[j]) << j;
+    const bool t_known = (known >> t_slot) & 1u;
     const bool t_ok = is_leader && tt != 0 && tt != L.lead_transferee && tt != L.id &&
-                      tt >= 1 && tt <= V && L.prs_id[t_slot] != 0 && !L.learners[t_slot];
+                      tt >= 1 && tt <= V && t_known;
     if (t_ok) {
       L.election_elapsed = 0;
       L.lead_transferee = tt;
     }
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       const bool t_cell = j == t_slot && t_ok;
       const bool t_ready = t_cell && L.pr_match[j] == L.last;
@@ -1537,16 +1957,17 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
         out.vote_kind[j] = MSG_TIMEOUT_NOW;
         out.vote_term[j] = L.term;
       }
-      R.want_send(j, t_cell && !t_ready, true);
+      rd.want_send(j, t_cell && !t_ready, true);
     }
   }
 
   // ReadIndex at the leader (raft.go:1303-1332)
   {
-    const int r = d.r;
+    const int r = R;
     const bool ri = ops.read_ctx != 0 && is_leader;
-    const bool ri_ok = ri && R.term_at(L.committed) == L.term;
+    const bool ri_ok = ri && rd.term_at(L.committed) == L.term;
     int n_in = 0, n_out = 0;
+    RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       n_in += L.voters_in[j];
       n_out += L.voters_out[j];
@@ -1556,6 +1977,7 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     const bool enq = ri_ok && !immediate;
     bool any_free = false;
     int first_free = 0;
+    RAFT_UNROLL
     for (int q = r - 1; q >= 0; --q) {
       if (L.ro_ctx[q] == 0) {
         any_free = true;
@@ -1568,11 +1990,12 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
       L.ro_ctx[q] = ops.read_ctx;
       L.ro_from[q] = L.id;
       L.ro_index[q] = L.committed;
+      RAFT_UNROLL
       for (int j = 0; j < V; ++j) L.ro_acks[q][j] = is_self[j];
       L.ro_seq[q] = L.ro_next_seq;
     }
     L.ro_next_seq += can_enq;
-    R.bcast_heartbeat(can_enq, ops.read_ctx);
+    rd.bcast_heartbeat(can_enq, ops.read_ctx);
     const bool imm_room = immediate && L.rs_count < r;
     ev.v[C_READ_INDEX_SERVED] += imm_room;
     if (imm_room) {
@@ -1588,22 +2011,23 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     L.lead = 0;
 
   // ---- the single coalesced append fan-out ----
-  R.maybe_send_append();
+  rd.maybe_send_append();
 
   // ---- synchronous persist + apply ----
   L.stabled = L.last;
-  const int applied_bytes = R.bytes_between(L.applied, L.committed);
-  R.applied_to(L.committed);
+  const int applied_bytes = rd.bytes_between(L.applied, L.committed);
+  rd.applied_to(L.committed);
   L.uncommitted_size = imax(L.uncommitted_size - applied_bytes, 0);
   if (flags & F_LAG) {
     L.avail_snap_index = L.applied;
-    L.avail_snap_term = R.term_at(L.applied);
+    L.avail_snap_term = rd.term_at(L.applied);
     const int target = imax(L.snap_index, L.applied - lag);
-    R.compact(target, R.term_at(target));
+    rd.compact(target, rd.term_at(target));
   }
 
   if (!metrics) return;
   // ---- end-of-round measurement ----
+  RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     ev.v[C_MSGS_APP] += out.rep_kind[j] == MSG_APP || out.rep_kind[j] == MSG_SNAP;
     ev.v[C_MSGS_APP_RESP] += out.rep_kind[j] == MSG_APP_RESP;
@@ -1620,9 +2044,10 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
     const int lat = round_ctr + 1 - samp.round;
     const int edges[kBuckets - 1] = {1, 2, 3, 4, 6, 8, 12, 16, 24, 32};
     int b = 0;
+    RAFT_UNROLL
     for (int x = 0; x < kBuckets - 1; ++x) b += lat > edges[x];
-    ev.v[C_HIST0 + b] += 1;
-    ev.v[C_LAT_SUM] += lat;
+    ev.bucket = b;
+    ev.lat = lat;
     samp.index = 0;
   }
 }
@@ -1630,89 +2055,107 @@ RAFT_HD void fused_round_lane(Lane<V> &L, const Cfg<V> &c, const Fab<V> &in,
 }  // namespace raft
 
 // ---------------------------------------------------------------------------
-// the launch: kc rounds of every lane of a block
+// the launch: kc rounds of every lane of a block, in phases separated by
+// block barriers (the host build runs each phase over all lanes in turn)
 
 namespace raft {
 
-// round k writes its outbox here; round k+1 reads it (the last round's
-// buffer is the output fabric, and consecutive rounds alternate)
-RAFT_HD void *const *fab_dst(const Args &a, int k) {
-  return a.p + (((a.kc - 1 - k) % 2 == 0) ? P_FAB_OUT : P_FAB_SCR);
-}
+// what a thread keeps across the rounds
+struct Thread {
+  Lane L;
+  Cfg c;
+  Sampler samp;
+  uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut)
+};
 
-RAFT_HD void *const *fab_src(const Args &a, int k) {
-  return k == 0 ? a.p + P_FAB_IN : fab_dst(a, k - 1);
-}
-
-RAFT_HD Dims dims_of(const Args &a) { return Dims{a.n, a.w, a.e, a.f, a.r}; }
-
-// load lane i's routed inbox, with the mute cut at the read
-template <int V>
-RAFT_HD void load_inbox(const Args &a, void *const *src, long long i,
-                        const Dims &d, Fab<V> &in, bool &mute_self,
-                        bool (&peer_mute)[V]) {
-  io_fab<LOAD_ROUTED>(src, in, i, d);
-  const long long base = i - i % V;
-  const uint8_t *mute = (const uint8_t *)a.p[P_MUTE];
-  mute_self = false;
-  for (int j = 0; j < V; ++j) peer_mute[j] = false;
-  if (!(a.flags & F_MUTE)) return;
-  mute_self = mute[i] != 0;
-  for (int j = 0; j < V; ++j) {
-    peer_mute[j] = mute[base + j] != 0;
-    if (peer_mute[j] || mute_self) {
-      in.rep_kind[j] = in.hb_kind[j] = in.vote_kind[j] = in.vresp_kind[j] = MSG_NONE;
-    }
+// lane i (thread t of the block): its carry into registers and its rings'
+// columns, its outbox row into fabric buffer 0, its config, sampler and
+// mute bits
+RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread &th) {
+  load_lane(th.L, a, B, i, t);
+  fab_rows(a, B, i, t, 0, true);
+  load_cfg(th.c, a, i);
+  th.samp.index = th.samp.round = 0;
+  if (a.flags & F_METRICS) {
+    th.samp.index = ((const int *)a.p[P_SAMP_INDEX_IN])[i];
+    th.samp.round = ((const int *)a.p[P_SAMP_ROUND_IN])[i];
+  }
+  th.cut = 0;
+  if (a.flags & F_MUTE) {
+    const uint8_t *mute = (const uint8_t *)a.p[P_MUTE];
+    const long long base = i - i % V;
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) th.cut |= uint32_t(mute[base + j] != 0) << j;
+    if (mute[i]) th.cut = (1u << V) - 1;
   }
 }
 
-template <int V>
-RAFT_HD void lane_round(const Args &a, long long i, int k, Lane<V> &L,
-                        const Cfg<V> &c, const Ops<V> &ops, Sampler &samp,
+// round k of lane i (thread t): inbox in buffer k % 2, outbox in the other
+RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t, Thread &th,
                         int round_ctr, Events &ev) {
-  const Dims d = dims_of(a);
-  Fab<V> in, out;
-  bool mute_self, peer_mute[V];
-  load_inbox<V>(a, fab_src(a, k), i, d, in, mute_self, peer_mute);
-  Ops<V> zero;
-  clear_ops(zero);
-  const bool use_ops = (a.flags & F_OPS) && (k == 0 || !(a.flags & F_OPS_ROUND0));
-  clear_fab(out, d);
-  fused_round_lane<V>(L, c, in, use_ops ? ops : zero, mute_self, peer_mute,
-                      a.flags, a.lag, round_ctr + k, samp, out, ev, d);
-  io_fab<STORE>(fab_dst(a, k), out, i, d);
+  const int src = k & 1;
+  const Fab in = inbox(B, src, t);
+  const Fab out = outbox(B, src ^ 1, t);
+  // the mute cut, at the read: only this lane reads its inbound cells
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j)
+    if ((th.cut >> j) & 1u)
+      in.rep_kind[j] = in.hb_kind[j] = in.vote_kind[j] = in.vresp_kind[j] = MSG_NONE;
+  clear_fab(out);
+  // the ops are read when a round applies them (not held across rounds)
+  Ops ops;
+  if ((a.flags & F_OPS) && (k == 0 || !(a.flags & F_OPS_ROUND0)))
+    load_ops(ops, a, i);
+  else
+    clear_ops(ops);
+  fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
+                   ev);
   // the carry crosses the slim dtypes between rounds (slim_state/fat_state)
-  io_state<ROUNDTRIP>(nullptr, L, i, d);
+  roundtrip_lane(th.L);
 }
 
-template <int V>
-RAFT_HD void lane_load(const Args &a, long long i, Lane<V> &L, Cfg<V> &c,
-                       Ops<V> &ops, Sampler &samp) {
-  const Dims d = dims_of(a);
-  io_state<LOAD>(a.p + P_STATE_IN, L, i, d);
-  io_cfg<LOAD>(a.p + P_CFG, c, i, d);
-  io_ops<LOAD>(a.p + P_OPS, ops, i, d);
-  samp.index = samp.round = 0;
+// after the rounds: lane i's carry, its last outbox (fabric buffer b) and
+// its sampler to device memory; only this thread wrote any of them
+RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t,
+                        const Thread &th) {
+  store_lane(th.L, a, i);
+  fab_rows(a, B, i, t, b, false);
   if (a.flags & F_METRICS) {
-    samp.index = ((const int *)a.p[P_SAMP_INDEX_IN])[i];
-    samp.round = ((const int *)a.p[P_SAMP_ROUND_IN])[i];
+    ((int *)a.p[P_SAMP_INDEX_OUT])[i] = th.samp.index;
+    ((int *)a.p[P_SAMP_ROUND_OUT])[i] = th.samp.round;
   }
 }
 
-template <int V>
-RAFT_HD void lane_store(const Args &a, long long i, Lane<V> &L,
-                        const Sampler &samp) {
-  const Dims d = dims_of(a);
-  io_state<STORE>(a.p + P_STATE_OUT, L, i, d);
-  if (a.flags & F_METRICS) {
-    ((int *)a.p[P_SAMP_INDEX_OUT])[i] = samp.index;
-    ((int *)a.p[P_SAMP_ROUND_OUT])[i] = samp.round;
-  }
+RAFT_HD int *acc_row(const Block &B, int k) { return B.acc(k & 1); }
+
+// The launch's arguments from a C entry's (table order; dims: n, v, w, e,
+// f, r, kc, cta): false unless v..r are this library's Shape and the
+// block is a multiple of v that divides n and takes at most S lanes.
+RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int flags, int lag,
+                     Args &a, int &cta) {
+  if (nptrs != kNumPtrs || dims[1] != V || dims[2] != W || dims[3] != E ||
+      dims[4] != F || dims[5] != R || dims[7] < V || dims[7] > S || dims[7] % V ||
+      dims[0] % dims[7] || dims[6] < 1)
+    return false;
+  for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
+  a.n = dims[0];
+  a.kc = (int)dims[6];
+  a.flags = flags;
+  a.lag = lag;
+  cta = (int)dims[7];
+  return true;
 }
 
-RAFT_HD int *partials_row(const Args &a, int k, long long block,
-                          long long n_blocks) {
-  return (int *)a.p[P_PARTIALS] + ((long long)k * n_blocks + block) * kPartialWidth;
+// round k's partials row from the block's sums, which are zeroed for
+// round k + 2 (threads tid of nth)
+RAFT_HD void write_partials(const Args &a, const Block &B, int k, long long blk,
+                            long long n_blocks, int tid, int nth) {
+  int *acc = acc_row(B, k);
+  int *row = (int *)a.p[P_PARTIALS] + ((long long)k * n_blocks + blk) * kPartialWidth;
+  for (int x = tid; x < kPartialWidth; x += nth) {
+    row[x] = x < kPartUsed ? acc[x] : 0;
+    if (x < kPartUsed) acc[x] = 0;
+  }
 }
 
 }  // namespace raft
@@ -1723,80 +2166,104 @@ namespace {
 
 using namespace raft;
 
-template <int V>
-__global__ void __launch_bounds__(kMaxCta) round_kernel(const Args a) {
-  __shared__ int acc[kPartUsed];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// the block's sums of round k: each counter summed over the warp, then one
+// shared-memory atomic per warp (integer adds: exact in any order)
+__device__ __forceinline__ void add_events(const Events &ev, int *acc, int t, int cta) {
+  const int live = cta - (t & ~31);
+  const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+  const bool leader = (t & 31) == 0;
+#pragma unroll
+  for (int x = 0; x < kCounters; ++x) {
+    const int s = __reduce_add_sync(mask, ev.v[x]);
+    if (leader && s) atomicAdd(&acc[x], s);
+  }
+#pragma unroll
+  for (int x = 0; x < kBuckets; ++x) {
+    const int s = __reduce_add_sync(mask, ev.bucket == x ? 1 : 0);
+    if (leader && s) atomicAdd(&acc[C_HIST0 + x], s);
+  }
+  const int s = __reduce_add_sync(mask, ev.lat);
+  if (leader && s) atomicAdd(&acc[C_LAT_SUM], s);
+}
+
+// blocks of this library that fit an SM's 228 KB of shared memory (1 KB of
+// it reserved per block): the register budget keeps that occupancy
+constexpr int kBlocksPerSm = imax(1, imin(8, (int)(233472 / (Block::bytes + 1024))));
+
+__global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, cta = blockDim.x;
+  const long long blk = blockIdx.x, i = blk * cta + t;
   const bool metrics = a.flags & F_METRICS;
-  Lane<V> L;
-  Cfg<V> c;
-  Ops<V> ops;
-  Sampler samp;
-  lane_load<V>(a, i, L, c, ops, samp);
+  const Block B{smem};
+  for (int x = t; x < 2 * kPartUsed; x += cta) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
+  Thread th;
+  lane_load(a, B, i, t, th);
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
+  __syncthreads();  // every lane's outbox is in buffer 0
   for (int k = 0; k < a.kc; ++k) {
     Events ev;
-    lane_round<V>(a, i, k, L, c, ops, samp, round_ctr, ev);
-    if (metrics) {
-      for (int t = threadIdx.x; t < kPartUsed; t += blockDim.x) acc[t] = 0;
-      __syncthreads();
-      for (int x = 0; x < kPartUsed; ++x)
-        if (ev.v[x]) atomicAdd(&acc[x], ev.v[x]);
-      __syncthreads();
-      int *row = partials_row(a, k, blockIdx.x, gridDim.x);
-      for (int t = threadIdx.x; t < kPartialWidth; t += blockDim.x)
-        row[t] = t < kPartUsed ? acc[t] : 0;
-    }
-    // this round's outbox is complete before the next round reads it, and
-    // every read of the buffer the next round overwrites is done
+    lane_round(a, B, k, i, t, th, round_ctr, ev);
+    if (metrics) add_events(ev, acc_row(B, k), t, cta);
+    // this round's outbox and sums are complete, and every read of its
+    // inbox (the next round's outbox) is done
     __syncthreads();
+    if (metrics) write_partials(a, B, k, blk, gridDim.x, t, cta);
   }
-  lane_store<V>(a, i, L, samp);
+  lane_store(a, B, a.kc & 1, i, t, th);  // the last round wrote buffer kc % 2
+}
+
+// The kernel's dynamic shared memory above 48 KB, enabled once.
+cudaError_t enable_smem() {
+  static bool done = false;
+  if (!done) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Block::bytes);
+    if (e != cudaSuccess) return e;
+    done = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // ptrs: kNumPtrs device pointers in table order; dims: n, v, w, e, f, r,
-// kc, cta (lanes per CUDA block: a multiple of v that divides n, <= 256).
-// Launches on `stream` and returns cudaGetLastError().
+// kc, cta (lanes per CUDA block: a multiple of v that divides n, at most
+// S). v..r must be the Shape this library was built for. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int raft_round(void *const *ptrs, int nptrs, const long long *dims,
                           int flags, int lag, void *stream) {
-  if (nptrs != kNumPtrs) return (int)cudaErrorInvalidValue;
   Args a;
-  for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
-  a.n = dims[0];
-  const int v = (int)dims[1];
-  a.w = (int)dims[2];
-  a.e = (int)dims[3];
-  a.f = (int)dims[4];
-  a.r = (int)dims[5];
-  a.kc = (int)dims[6];
-  const long long cta = dims[7];
-  a.flags = flags;
-  a.lag = lag;
-  if (cta < 1 || cta > kMaxCta || cta % v || a.n % cta || a.w > kMaxW ||
-      a.e > kMaxE || a.f > kMaxF || a.r > kMaxR || a.kc < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)(a.n / cta);
-  // the widened carry lives in the thread's local memory: make sure the
-  // per-thread stack covers the kernel's frame
-#define LAUNCH(V)                                                       \
-  do {                                                                  \
-    cudaFuncAttributes attr;                                            \
-    size_t limit = 0;                                                   \
-    if (cudaFuncGetAttributes(&attr, round_kernel<V>) == cudaSuccess && \
-        cudaDeviceGetLimit(&limit, cudaLimitStackSize) == cudaSuccess &&  \
-        attr.localSizeBytes > limit)                                    \
-      cudaDeviceSetLimit(cudaLimitStackSize, attr.localSizeBytes);      \
-    round_kernel<V><<<grid, (unsigned)cta, 0, s>>>(a);                  \
-  } while (0)
-  RAFT_V_SWITCH(v, LAUNCH)
-#undef LAUNCH
+  int cta;
+  if (!args_of(ptrs, nptrs, dims, flags, lag, a, cta)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = enable_smem();
+  if (e != cudaSuccess) return (int)e;
+  round_kernel<<<(unsigned)(a.n / cta), (unsigned)cta, (size_t)Block::bytes,
+                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-#else  // a host build of the same lane code, run block by block on the CPU
+// For a CUDA block of cta lanes: out = {shared-memory bytes, resident
+// blocks per SM, registers per thread, local (stack) bytes per thread}.
+extern "C" int raft_round_info(long long cta, long long *out) {
+  if (cta < 1 || cta > S) return (int)cudaErrorInvalidValue;
+  cudaError_t e = enable_smem();
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, round_kernel, (int)cta,
+                                                    (size_t)Block::bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, round_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = Block::bytes;
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = (long long)attr.localSizeBytes;
+  return 0;
+}
+
+#else  // a host build of the same phases, block by block, lane by lane
 
 #include <vector>
 
@@ -1804,66 +2271,51 @@ namespace {
 
 using namespace raft;
 
-template <int V>
-int round_host(const Args &a, long long cta) {
+int round_host(const Args &a, int cta) {
   const long long n_blocks = a.n / cta;
   const bool metrics = a.flags & F_METRICS;
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
-  std::vector<Lane<V>> L(cta);
-  std::vector<Cfg<V>> c(cta);
-  std::vector<Ops<V>> ops(cta);
-  std::vector<Sampler> samp(cta);
-  for (long long b = 0; b < n_blocks; ++b) {
-    for (long long t = 0; t < cta; ++t)
-      lane_load<V>(a, b * cta + t, L[t], c[t], ops[t], samp[t]);
+  std::vector<Bits<16>> buf((Block::bytes + 15) / 16);
+  const Block B{(unsigned char *)buf.data()};
+  std::vector<Thread> th(cta);
+  for (long long blk = 0; blk < n_blocks; ++blk) {
+    for (int x = 0; x < 2 * kPartUsed; ++x) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
+    for (int t = 0; t < cta; ++t) lane_load(a, B, blk * cta + t, t, th[t]);
     for (int k = 0; k < a.kc; ++k) {
-      int acc[kPartUsed] = {0};
-      for (long long t = 0; t < cta; ++t) {
+      int *acc = acc_row(B, k);
+      for (int t = 0; t < cta; ++t) {
         Events ev;
-        lane_round<V>(a, b * cta + t, k, L[t], c[t], ops[t], samp[t], round_ctr, ev);
-        for (int x = 0; x < kPartUsed; ++x) acc[x] += ev.v[x];
+        lane_round(a, B, k, blk * cta + t, t, th[t], round_ctr, ev);
+        if (!metrics) continue;
+        for (int x = 0; x < kCounters; ++x) acc[x] += ev.v[x];
+        if (ev.bucket >= 0) acc[C_HIST0 + ev.bucket] += 1;
+        acc[C_LAT_SUM] += ev.lat;
       }
-      if (metrics) {
-        int *row = partials_row(a, k, b, n_blocks);
-        for (int x = 0; x < kPartialWidth; ++x) row[x] = x < kPartUsed ? acc[x] : 0;
-      }
+      if (metrics)
+        for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
     }
-    for (long long t = 0; t < cta; ++t) lane_store<V>(a, b * cta + t, L[t], samp[t]);
+    for (int t = 0; t < cta; ++t) lane_store(a, B, a.kc & 1, blk * cta + t, t, th[t]);
   }
   return 0;
 }
 
 }  // namespace
 
-extern "C" int raft_round_host(void *const *ptrs, int nptrs,
-                               const long long *dims, int flags, int lag) {
-  if (nptrs != kNumPtrs) return 1;
+extern "C" int raft_round_host(void *const *ptrs, int nptrs, const long long *dims,
+                               int flags, int lag) {
   Args a;
-  for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
-  a.n = dims[0];
-  const int v = (int)dims[1];
-  a.w = (int)dims[2];
-  a.e = (int)dims[3];
-  a.f = (int)dims[4];
-  a.r = (int)dims[5];
-  a.kc = (int)dims[6];
-  const long long cta = dims[7];
-  a.flags = flags;
-  a.lag = lag;
-  if (cta < 1 || cta % v || a.n % cta || a.w > kMaxW || a.e > kMaxE ||
-      a.f > kMaxF || a.r > kMaxR || a.kc < 1)
-    return 1;
-  switch (v) {
-    case 1: return round_host<1>(a, cta);
-    case 2: return round_host<2>(a, cta);
-    case 3: return round_host<3>(a, cta);
-    case 4: return round_host<4>(a, cta);
-    case 5: return round_host<5>(a, cta);
-    case 6: return round_host<6>(a, cta);
-    case 7: return round_host<7>(a, cta);
-    case 8: return round_host<8>(a, cta);
-    default: return 1;
-  }
+  int cta;
+  if (!args_of(ptrs, nptrs, dims, flags, lag, a, cta)) return 1;
+  return round_host(a, cta);
 }
 
 #endif
+
+// The Shape and stride this library was built for ({v, w, e, f, r, s})
+// and the bytes of shared memory its CUDA block takes.
+extern "C" void raft_round_shape(long long *out) {
+  const long long s[6] = {raft::V, raft::W, raft::E, raft::F, raft::R, raft::S};
+  for (int x = 0; x < 6; ++x) out[x] = s[x];
+}
+
+extern "C" long long raft_round_smem() { return raft::Block::bytes; }

@@ -14,6 +14,7 @@ This module imports no JAX: the caller turns JAX arrays into numpy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import typing
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 
+@functools.cache
 def _children(cls):
     """(name, nested class or None) for each field of a dataclass or
     NamedTuple, in order."""
@@ -35,7 +37,7 @@ def _children(cls):
         h = hints.get(name)
         nested = h if isinstance(h, type) and _is_tree(h) else None
         out.append((name, nested))
-    return out
+    return tuple(out)
 
 
 def _is_tree(cls) -> bool:

@@ -234,7 +234,7 @@ def pallas_rounds(
     fab = fmod.slim_fabric(fab)
     n = state.term.shape[0]
     check_tile(n, v, tile_lanes)
-    cta = round_cuda.cta_lanes(tile_lanes, v)
+    cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v))
 
     kc = max(1, min(rounds_per_call, n_rounds)) if n_rounds else 1
     n_full, rem = divmod(n_rounds, kc)

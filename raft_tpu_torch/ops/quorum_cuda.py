@@ -34,25 +34,33 @@ _N = ctypes.c_longlong
 
 
 class Kernel:
-    """One C entry point of csrc/<lib>.cu and its launch count."""
+    """One C entry point of a library built from csrc/ and its launch
+    count; `lib` is the default build target (a source name, or a
+    build.Target with its -D macros), `launch(..., target=)` another."""
 
-    def __init__(self, name: str, symbol: str, argtypes, lib: str = "quorum"):
+    def __init__(self, name: str, symbol: str, argtypes, lib: build.Target | str = "quorum"):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.lib = lib
         self.launches = 0
-        self._fn = None
+        self._fns = {}
 
-    def launch(self, device: torch.device, *args):
-        if self._fn is None:
-            fn = getattr(build.load(self.lib), self.symbol)
+    def fn(self, target: build.Target | str | None = None):
+        t = build.as_target(target or self.lib)
+        fn = self._fns.get(t.key)
+        if fn is None:
+            fn = getattr(build.load(t), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fns[t.key] = fn
+        return fn
+
+    def launch(self, device: torch.device, *args, target: build.Target | str | None = None):
+        fn = self.fn(target)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = self._fn(*args, stream)
+            rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
         self.launches += 1

@@ -15,6 +15,13 @@ The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
 order, with each leaf's storage dtype and shape, as X-macro tables;
 `layout()` parses them, and every launch checks that the two agree.
+
+The kernel is compiled for one Shape (V, W, E, F, R as -D macros) and
+one column stride S of its shared memory (`stride(cta)`): the first launch
+at a Shape and block size builds its library (`target`), and a Shape the
+kernel does not take, or a library that does not build, raises naming the
+Shape. `smem_bytes` is csrc/round.cu's Block: the shared memory a CUDA
+block takes, which bounds its lane count (`cta_lanes`).
 """
 
 from __future__ import annotations
@@ -33,10 +40,13 @@ from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
 from raft_tpu_torch.state import LaneConfig, RaftState
 
 I32 = torch.int32
-MAX_V = 8  # the kernel instantiates V = 1..8
+MAX_V = 8  # csrc/round.cu takes V = 1..8 ...
+CAPS = {"w": 64, "e": 8, "f": 8, "r": 8}  # ... and W, E, F, R up to these
 MAX_CTA = 256  # csrc/round.cu kMaxCta
+CTA_TARGET = 96  # lanes per CUDA block the engine aims for (PERF.md, PR 3)
+MAX_SMEM = 232_448  # shared memory one block can use on the H100 (227 KB)
 PARTIAL_WIDTH = 128  # csrc/round.cu kPartialWidth
-CAPS = {"w": 64, "e": 8, "f": 8, "r": 8}  # csrc/round.cu kMaxW/E/F/R
+PART_USED = 25  # csrc/round.cu kPartUsed
 
 _P = ctypes.c_void_p
 KERNELS = {
@@ -45,6 +55,11 @@ KERNELS = {
         [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P], lib="round",
     )
 }
+_SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1}
+_RINGS = ("WIN", "INFL", "READ", "READ_PEER")
+# the state leaves the round never touches: they go from input to output
+# in registers and bypass shared memory (csrc/round.cu through())
+THROUGH = ("is_learner", "learners_next", "auto_leave", "pri_ctx", "pri_from")
 
 # csrc/round.cu flags
 F_MUTE, F_METRICS, F_TICK, F_AUTO_PROPOSE, F_LAG, F_OPS, F_OPS_ROUND0 = (
@@ -142,14 +157,76 @@ def _shape(kind: str, n: int, v: int, d: dict) -> tuple:
     }[kind]
 
 
-def cta_lanes(tile_lanes: int, v: int, target: int = 192) -> int:
+def dims_of(state, fab, v: int) -> dict:
+    """The Shape of a slim carry: {v, w, e, f, r}."""
+    return {"v": v, "w": state.log_term.shape[1], "e": fab.rep.ent_term.shape[2],
+            "f": state.infl_index.shape[2], "r": state.ro_ctx.shape[1]}
+
+
+def shape_name(d: dict) -> str:
+    return "Shape(V={v}, W={w}, E={e}, F={f}, R={r})".format(**d)
+
+
+def check_shape(d: dict) -> None:
+    """Raise, naming the dimension, for a Shape the kernel does not take."""
+    if not 1 <= d["v"] <= MAX_V:
+        raise ValueError(f"the round kernel takes 1 <= V <= {MAX_V}, got V={d['v']}")
+    for k, cap in CAPS.items():
+        if not 1 <= d[k] <= cap:
+            raise ValueError(f"the round kernel takes 1 <= {k} <= {cap}, got {k}={d[k]}")
+    if d["w"] & (d["w"] - 1):
+        raise ValueError(f"the round kernel takes a power-of-two w, got w={d['w']}")
+
+
+def stride(cta: int) -> int:
+    """csrc/round.cu's compile-time column stride S for blocks of cta
+    lanes: cta rounded up to a multiple of 32 (a warp's banks)."""
+    return -(-cta // 32) * 32
+
+
+def target(d: dict, cta: int) -> build.Target:
+    """The library of the kernel for Shape d and blocks of cta lanes."""
+    return build.Target(
+        "round",
+        tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),),
+    )
+
+
+def smem_bytes(d: dict, cta: int) -> int:
+    """Shared memory of one CUDA block of `cta` lanes at Shape d
+    (csrc/round.cu Block): with S = stride(cta), the rings (but THROUGH) at
+    stride S, two fabric buffers at stride S + 1, two metrics rows; each
+    region padded to 16 bytes."""
+    v, w, e, f, r = (d[k] for k in "vwefr")
+    elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
+             "READ_PEER": r * v, "ENT": v * e}
+    tab = layout()
+
+    def count(group, kinds, size):
+        return sum(elems[k] for name, dt, k in tab[group]
+                   if k in kinds and _SIZE[dt] == size and name not in THROUGH)
+
+    def pad(x):
+        return -(-x // 16) * 16
+
+    sr = stride(cta)
+    sf = sr + 1
+    rings = pad(4 * count("STATE", _RINGS, 4) * sr) + pad(count("STATE", _RINGS, 1) * sr)
+    fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
+    return rings + 2 * fab + 2 * pad(4 * PART_USED)
+
+
+def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
+              target: int = CTA_TARGET) -> int:
     """Lanes per CUDA block: the largest multiple of v that divides the tile
-    and is at most `target` (else the smallest such multiple, at most
-    MAX_CTA)."""
+    and is at most `target` (else the smallest such multiple), at most
+    MAX_CTA and, given the Shape `dims`, within MAX_SMEM where one is."""
     cands = [c for c in range(v, min(tile_lanes, MAX_CTA) + 1, v) if tile_lanes % c == 0]
     if not cands:
         raise ValueError(f"no CUDA block of <= {MAX_CTA} lanes covers whole groups of "
                          f"tile_lanes={tile_lanes}, v={v}")
+    if dims is not None:  # where none fits, pack refuses the launch by name
+        cands = [c for c in cands if smem_bytes(dims, c) <= MAX_SMEM] or cands
     small = [c for c in cands if c <= target]
     return max(small) if small else min(cands)
 
@@ -157,20 +234,16 @@ def cta_lanes(tile_lanes: int, v: int, target: int = 192) -> int:
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
          ops_round0_only, do_tick, auto_propose, auto_compact_lag):
     """Check every leaf and allocate the outputs; returns (pointer list,
-    dims, flags, lag, outputs, scratch), outputs = (state, fab, sampler,
-    partials). The caller holds `scratch` (the ping-pong fabric) until the
-    launch is enqueued."""
+    dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)."""
     _check_layout()
     n = state.term.shape[0]
-    d = {"w": state.log_term.shape[1], "e": fab.rep.ent_term.shape[2],
-         "f": state.infl_index.shape[2], "r": state.ro_ctx.shape[1]}
-    if not 1 <= v <= MAX_V:
-        raise ValueError(f"the round kernel takes 1 <= V <= {MAX_V}, got V={v}")
-    for k, cap in CAPS.items():
-        if d[k] > cap:
-            raise ValueError(f"the round kernel takes {k} <= {cap}, got {d[k]}")
-    if n % v or n % cta or cta % v or not 1 <= cta <= MAX_CTA:
+    d = dims_of(state, fab, v)
+    check_shape(d)
+    if not 1 <= cta <= MAX_CTA or n % v or n % cta or cta % v:
         raise ValueError(f"bad lane layout: n={n}, v={v}, cta={cta}")
+    if smem_bytes(d, cta) > MAX_SMEM:
+        raise ValueError(f"a CUDA block of cta={cta} lanes at {shape_name(d)} needs "
+                         f"{smem_bytes(d, cta)} bytes of shared memory, over {MAX_SMEM}")
     if not 1 <= kc:
         raise ValueError(f"kc must be >= 1, got {kc}")
     dev = state.term.device
@@ -182,6 +255,8 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     for g, leaves in groups.items():
         for (name, dt, kind), x in zip(tab[g], leaves):
             _check(f"{g.lower()}.{name}", x, DTYPES[dt], _shape(kind, n, v, d), dev)
+            if x.data_ptr() % 16:  # the kernel moves a lane's row in 16-byte accesses
+                raise ValueError(f"{g.lower()}.{name} must start 16-byte aligned")
     metrics = sampler is not None
     if mute is not None:
         _check("mute", mute, torch.bool, (n,), dev)
@@ -192,7 +267,6 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
 
     st_out = [torch.empty_like(x) for x in groups["STATE"]]
     fab_out = [torch.empty_like(x) for x in groups["FABRIC"]]
-    fab_scr = [torch.empty_like(x) for x in groups["FABRIC"]] if kc > 1 else [None] * len(fab_out)
     samp_out = [torch.empty_like(x) for x in sampler] if metrics else [None, None]
     parts = (
         torch.empty((kc, n // cta, PARTIAL_WIDTH), dtype=I32, device=dev)
@@ -206,7 +280,7 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     ptrs += [ptr(mute)]
     ptrs += [ptr(x) for x in (sampler if metrics else (None, None))]
     ptrs += [ptr(round_ctr if metrics else None)]
-    ptrs += [ptr(x) for x in st_out + fab_out + fab_scr + samp_out] + [ptr(parts)]
+    ptrs += [ptr(x) for x in st_out + fab_out + samp_out] + [ptr(parts)]
     flags = (
         (F_MUTE if mute is not None else 0) | (F_METRICS if metrics else 0)
         | (F_TICK if do_tick else 0) | (F_AUTO_PROPOSE if auto_propose else 0)
@@ -220,7 +294,7 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
         tuple(samp_out) if metrics else None,
         parts,
     )
-    return ptrs, dims, flags, int(auto_compact_lag or 0), outputs, fab_scr
+    return ptrs, dims, flags, int(auto_compact_lag or 0), outputs
 
 
 def as_c_args(ptrs, dims):
@@ -241,10 +315,20 @@ def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
         from raft_tpu_torch.ops.pallas_round import round_kernel_ref
 
         return round_kernel_ref(state, fab, ops, mute, sampler, round_ctr, **kw)
-    ptrs, dims, flags, lag, outputs, scratch = pack(
-        state, fab, ops, mute, sampler, round_ctr, **kw
-    )
+    ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr, **kw)
+    t = library(dims_of(state, fab, v), cta)
     arr, nptr, cdims = as_c_args(ptrs, dims)
-    KERNELS["round_kernel"].launch(state.term.device, arr, nptr, cdims, flags, lag)
-    del scratch  # stream-ordered: the allocator reuses it only after the launch
+    KERNELS["round_kernel"].launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
     return outputs
+
+
+def library(d: dict, cta: int) -> build.Target:
+    """Build (once) the kernel for Shape d and blocks of cta lanes; raises
+    naming the Shape when its library does not build. Returns the build
+    target."""
+    t = target(d, cta)
+    try:
+        KERNELS["round_kernel"].fn(t)
+    except RuntimeError as e:
+        raise RuntimeError(f"round_kernel for {shape_name(d)} did not build: {e}") from e
+    return t

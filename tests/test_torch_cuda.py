@@ -121,3 +121,34 @@ def test_round_kernel_equals_plain(card, k):
 
     for name, a, b in zip(labels, leaves(got), leaves(want)):
         assert a.dtype == b.dtype and np.array_equal(a, b), f"first differing leaf: {name}"
+
+
+def test_round_kernel_bench_widths_k8(card):
+    """The megakernel against round_kernel_ref at the bench shape's widths
+    (V=3, W16/E2/F2/R2) and the engine's CUDA block, 8 rounds in one
+    launch over 4 blocks of whole groups: the fabric stays in shared memory
+    for 7 of the 8 round trips."""
+    from raft_tpu_torch.ops import pallas_round as plr
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    v, g = 3, 128
+    shape = Shape(n_lanes=g * v, max_peers=v, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    c = FusedCluster(g, v, seed=8, shape=shape)
+    c.run(16, auto_propose=True, auto_compact_lag=4)
+    c.set_mute([7, 200])
+    ops = c.ops(hup={0: True}, prop_n={4: 2}, prop_bytes=5,
+                read_ctx={i: 3 + i for i in range(g * v)})
+    m = c.metrics
+    args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    cta = rc.cta_lanes(g * v, v, rc.dims_of(c.state, c.fab, v))
+    assert cta == rc.CTA_TARGET and (g * v) // cta == 4
+    kw = dict(v=v, kc=8, cta=cta, do_tick=True, auto_propose=True, auto_compact_lag=4)
+    got = rc.round_call(*args, **kw)
+    want = plr.round_kernel_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], want[:2]):
+        for x, y in zip(interop.to_numpy_leaves(a), interop.to_numpy_leaves(b)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    for x, y in zip(got[2] + (got[3],), want[2] + (want[3],)):
+        assert torch.equal(x, y)

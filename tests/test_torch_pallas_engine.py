@@ -1,6 +1,8 @@
 """The port's pallas engine on the CPU: the cluster and scheduler entry
-points against the eager engine, the tile and round-plan errors, and the
-argument packing of csrc/round.cu against the dataclasses.
+points against the eager engine, the tile and round-plan errors, the
+library and block chosen for each Shape (build target, shape bounds, shared
+memory, CUDA block), and the argument packing of csrc/round.cu against the
+dataclasses.
 
 Integer state: every comparison is exact. The JAX package is not needed
 here; tests/test_torch_pallas_round.py holds the engine against it.
@@ -115,7 +117,7 @@ def test_tile_helpers():
     assert plr.default_tile(n, v) == 3072
     assert plr.default_tile(12, 3) == 12
     assert plr.default_tile(65536 * 3, 3) == 3072  # the bench block
-    assert rc.cta_lanes(3072, 3) == 192
+    assert rc.cta_lanes(3072, 3) == rc.CTA_TARGET == 96  # 3 blocks per SM on the H100
     assert rc.cta_lanes(6, 3) == 6
     assert rc.cta_lanes(3 * 1021, 3) == 3  # 1021 is prime
     assert all(rc.cta_lanes(t, 5) % 5 == 0 for t in (5, 10, 640, 5 * 512))
@@ -196,14 +198,14 @@ def test_pack_checks_every_leaf():
     kw = dict(v=V, kc=2, cta=TILE, apply_ops=True, ops_round0_only=True, do_tick=True,
               auto_propose=True, auto_compact_lag=4)
     samp = (m.samp_index, m.samp_round)
-    ptrs, dims, flags, lag, outputs, scratch = rc.pack(
+    ptrs, dims, flags, lag, outputs = rc.pack(
         c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw
     )
-    assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 29 + 3
+    # no scratch fabric: the K rounds keep the fabric in shared memory
+    assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 3
     assert dims == [N, V, 8, 2, 2, 2, 2, TILE] and lag == 4
     assert flags == rc.F_MUTE | rc.F_METRICS | rc.F_TICK | rc.F_AUTO_PROPOSE | rc.F_LAG | rc.F_OPS | rc.F_OPS_ROUND0
     assert outputs[3].shape == (2, N // TILE, plr.PARTIAL_WIDTH)
-    assert len(scratch) == 29 and all(x is not None for x in scratch)
     fat = tfused.fat_fabric(c.fab)
     with pytest.raises(TypeError, match="fabric.rep_kind"):
         rc.pack(c.state, fat, c._no_ops, c.mute, samp, m.round_ctr, **kw)
@@ -215,6 +217,126 @@ def test_pack_checks_every_leaf():
         rc.pack(bad, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw)
     with pytest.raises(ValueError, match="V <= 8"):
         rc.pack(c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **dict(kw, v=9))
+
+
+@pytest.mark.parametrize("dim,shape_kw,match", [
+    ("v", dict(max_peers=9), "V <= 8"),
+    ("w", dict(log_window=128), "w <= 64"),
+    ("e", dict(max_msg_entries=9), "e <= 8"),
+    ("f", dict(max_inflight=9), "f <= 8"),
+    ("r", dict(max_read_index=9), "r <= 8"),
+])
+def test_pack_refuses_shapes_beyond_the_kernel(dim, shape_kw, match):
+    """csrc/round.cu is compiled for one Shape at a time, V, W, E, F and R
+    within its static bounds: a Shape beyond them is refused by name before
+    any build or launch."""
+    v = shape_kw.get("max_peers", V)
+    kw = {**dict(max_peers=v, log_window=8, max_msg_entries=2, max_inflight=2,
+                 max_read_index=2), **shape_kw}
+    c = tfused.FusedCluster(2, v, shape=Shape(n_lanes=2 * v, **kw), device="cpu")
+    m = c.metrics
+    d = rc.dims_of(c.state, c.fab, v)
+    assert d[dim] == {"v": v, "w": kw["log_window"], "e": kw["max_msg_entries"],
+                      "f": kw["max_inflight"], "r": kw["max_read_index"]}[dim]
+    with pytest.raises(ValueError, match=match):
+        rc.pack(c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round),
+                m.round_ctr, v=v, kc=1, cta=v, apply_ops=True, ops_round0_only=True,
+                do_tick=True, auto_propose=False, auto_compact_lag=None)
+
+
+def test_cta_lanes_fit_shared_memory():
+    """The CUDA block is chosen within the card's shared memory for the
+    Shape; a block that does not fit is refused by pack."""
+    big = dict(v=8, w=64, e=8, f=8, r=8)
+    assert rc.smem_bytes(big, 192) > rc.MAX_SMEM
+    cta = rc.cta_lanes(8 * 1024, 8, big)
+    assert cta % 8 == 0 and rc.smem_bytes(big, cta) <= rc.MAX_SMEM
+    assert rc.smem_bytes(big, cta + 8) > rc.MAX_SMEM or (8 * 1024) % (cta + 8)
+    bench = dict(v=3, w=16, e=2, f=2, r=2)
+    assert rc.cta_lanes(3072, 3, bench) == rc.cta_lanes(3072, 3) == rc.CTA_TARGET
+    c = tfused.FusedCluster(8, 8, shape=Shape(n_lanes=64, max_peers=8, log_window=64,
+                                              max_msg_entries=8, max_inflight=8,
+                                              max_read_index=8), device="cpu")
+    m = c.metrics
+    with pytest.raises(ValueError, match="shared memory"):
+        rc.pack(c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round),
+                m.round_ctr, v=8, kc=1, cta=64, apply_ops=True, ops_round0_only=True,
+                do_tick=True, auto_propose=False, auto_compact_lag=None)
+
+
+@pytest.mark.parametrize("v", range(1, rc.MAX_V + 1))
+def test_library_target_is_the_shape_and_stride(v):
+    """One library per Shape and block stride: the target's -D macros are
+    V, W, E, F, R and the block rounded up to whole warps, and its key
+    names exactly those."""
+    d = dict(v=v, w=16, e=2, f=2, r=2)
+    keys = {}
+    for cta in range(v, rc.MAX_CTA + 1, v):
+        s = rc.stride(cta)
+        assert s % 32 == 0 and cta <= s < cta + 32 and rc.stride(s) == s
+        t = rc.target(d, cta)
+        assert t.source == "round"
+        assert t.defines == (("RAFT_V", v), ("RAFT_W", 16), ("RAFT_E", 2), ("RAFT_F", 2),
+                             ("RAFT_R", 2), ("RAFT_S", s))
+        assert t.flags == tuple(f"-D{k}={x}" for k, x in t.defines)
+        keys.setdefault(t.key, set()).add(s)
+    assert all(len(strides) == 1 for strides in keys.values())
+    for k in "wefr":
+        assert rc.target({**d, k: d[k] * 2}, v).key != rc.target(d, v).key
+
+
+@pytest.mark.parametrize("v", range(1, rc.MAX_V + 1))
+def test_check_shape_names_the_dimension(v):
+    """check_shape takes every Shape within the kernel's static bounds
+    whose W is a power of two, and refuses any other by the dimension's
+    name."""
+    base = dict(v=v, w=8, e=2, f=2, r=2)
+    for w in (1, 2, 8, 16, rc.CAPS["w"]):
+        rc.check_shape(dict(base, w=w))
+    rc.check_shape(dict(base, **{k: rc.CAPS[k] for k in "efr"}))
+    with pytest.raises(ValueError, match="power-of-two w, got w=12"):
+        rc.check_shape(dict(base, w=12))
+    for k, cap in rc.CAPS.items():
+        for bad in (0, 2 * cap):
+            with pytest.raises(ValueError, match=f"1 <= {k} <= {cap}, got {k}={bad}"):
+                rc.check_shape(dict(base, **{k: bad}))
+    for bad in (0, rc.MAX_V + 1):
+        with pytest.raises(ValueError, match=f"V <= {rc.MAX_V}, got V={bad}"):
+            rc.check_shape(dict(base, v=bad))
+
+
+@pytest.mark.parametrize("v", range(1, rc.MAX_V + 1))
+def test_smem_bytes_follows_the_stride(v):
+    """A block's shared memory is a multiple of 16 bytes, depends on the
+    block only through its stride, never shrinks as the block grows, and
+    grows with each of W, E, F and R."""
+    d = dict(v=v, w=16, e=2, f=2, r=2)
+    prev = 0
+    for cta in range(v, rc.MAX_CTA + 1, v):
+        b = rc.smem_bytes(d, cta)
+        assert b % 16 == 0 and b >= prev and b == rc.smem_bytes(d, rc.stride(cta)), cta
+        prev = b
+    for k in "wefr":
+        assert rc.smem_bytes({**d, k: 2 * d[k]}, 32) > rc.smem_bytes(d, 32), k
+
+
+@pytest.mark.parametrize("v", range(1, rc.MAX_V + 1))
+def test_cta_lanes_is_the_largest_block_within_target(v):
+    """For tiles of whole groups: the block is the largest multiple of v
+    that divides the tile at or below the target (else the smallest), at
+    most kMaxCta, and, given the largest Shape, one that fits the card's
+    shared memory where any does."""
+    big = dict(v=v, w=rc.CAPS["w"], e=rc.CAPS["e"], f=rc.CAPS["f"], r=rc.CAPS["r"])
+    for groups in (1, 2, 5, 12, 64, 1021, 1024):
+        tile = groups * v
+        cands = [c for c in range(v, min(tile, rc.MAX_CTA) + 1, v) if tile % c == 0]
+        for aim in (v, 32, rc.CTA_TARGET, rc.MAX_CTA):
+            below = [c for c in cands if c <= aim]
+            want = max(below) if below else min(cands)
+            assert rc.cta_lanes(tile, v, target=aim) == want, (tile, aim)
+        fit = [c for c in cands if rc.smem_bytes(big, c) <= rc.MAX_SMEM]
+        cta = rc.cta_lanes(tile, v, big)
+        assert cta in (fit or cands) and cta <= rc.MAX_CTA, tile
 
 
 @pytest.fixture(scope="module")
@@ -256,8 +378,9 @@ def _leaf(args, group, name):
 )
 def test_pack_refuses_each_bad_leaf(pack_args, group, name):
     """The kernel reads every leaf through a raw pointer: a leaf of another
-    dtype, another shape or a strided layout is refused by name before any
-    launch, for each leaf of csrc/round.cu's tables."""
+    dtype, another shape, a strided layout or a start off 16-byte alignment
+    is refused by name before any launch, for each leaf of csrc/round.cu's
+    tables."""
     *args, kw = pack_args
     x = _leaf(args, group, name)
     what = f"{group.lower()}.{name}"
@@ -271,3 +394,20 @@ def test_pack_refuses_each_bad_leaf(pack_args, group, name):
         strided = x.transpose(0, 1).contiguous().transpose(0, 1)
         with pytest.raises(ValueError, match=f"{what} must be contiguous"):
             rc.pack(*_with_leaf(args, group, name, strided), **kw)
+    shifted = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    with pytest.raises(ValueError, match=f"{what} must start 16-byte aligned"):
+        rc.pack(*_with_leaf(args, group, name, shifted), **kw)
+
+
+@pytest.mark.parametrize("cta,kc,match", [
+    (4, 1, "bad lane layout"),  # not whole groups
+    (9, 1, "bad lane layout"),  # does not divide the lanes
+    (0, 1, "bad lane layout"),
+    (TILE, 0, "kc must be >= 1"),
+])
+def test_pack_refuses_bad_launch_geometry(pack_args, cta, kc, match):
+    """Blocks must hold whole groups and divide the lanes, and a launch
+    runs at least one round: refused before any leaf is read."""
+    *args, kw = pack_args
+    with pytest.raises(ValueError, match=match):
+        rc.pack(*args, **dict(kw, cta=cta, kc=kc))
