@@ -14,17 +14,24 @@ Phases:
   build    nvcc of csrc/quorum.cu and of csrc/round.cu for each (Shape,
            CUDA block) the script uses (ROUND_BUILDS: W16/E2/F2/R2 at V=3
            with the engine's 96-lane block and 6, 48 and 192 lanes, and at
-           V=5 with 10), all started together: seconds of each, and for
-           the round kernel ptxas's registers, stack frame and spills, its
-           shared memory and resident blocks per SM
-  kernels  each quorum kernel against its plain version at V in {1,3,5,7},
-           N = 196,608 (one block's lanes) and a ragged N; exact equality;
+           V=5 with 10), all started together: seconds of each, ptxas's
+           registers, stack frame and spills of every kernel function
+           (each quorum kernel at each V), and the round kernel's shared
+           memory and resident blocks per SM
+  kernels  each quorum kernel against its plain version at V = 1..8 and
+           N = 196,608 (one block's lanes), 196,609-196,611, 100,003 and 3
+           (every n % 4 of the quad kernels), and the lane-major kernels
+           on bool masks whose bytes hold 2..255; exact equality; each
+           lane-major wrapper refuses, by name, an operand one element off
+           its alignment, before any launch;
            timed at the main-path shape (V = 3) on raw launches with the
            arguments packed once: device time per launch from the
            profiler with the L2 cache overwritten before each launch (ms)
            and back to back (warm_ms, inputs resident in L2), and CUDA
            events over back-to-back launches, beside its wrapper and the
-           plain version
+           plain version; and the floor under the lane-major kernels on
+           their grid, timed the same way: an empty launch, and a 16-byte
+           read of each kernel's input bytes that writes its output bytes
   parity   a 64-group FusedCluster for 33 rounds on the card and on the CPU:
            identical sha256 over every state, fabric and metrics leaf
   main     BlockedFusedCluster, 1,048,576 groups x 3 voters as 16 blocks of
@@ -228,12 +235,42 @@ def ops_needed(name: str, n: int, v: int) -> int:
     return per_lane * n
 
 
+def check_alignment(dev) -> list[str]:
+    """Each lane-major wrapper on operands where one argument is a view one
+    element off its allocation: it must raise ValueError naming that
+    argument, and launch nothing."""
+    rng = np.random.default_rng(7)
+    refused = []
+    for name, args in (("committed", ("match", "mask")),
+                       ("joint_committed", ("match", "mask_in", "mask_out"))):
+        for bad in args:
+            ops = dict(zip(("match", "mask_in", "mask_out"),
+                           quorum_inputs(rng, 1024, VOTERS, dev)))
+            ops["mask"] = ops["mask_in"]
+            x = ops[bad]
+            off = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+            off.copy_(x)
+            ops[bad] = off
+            before = {k: q.launches for k, q in qc.KERNELS.items()}
+            try:
+                getattr(qc, name)(*(ops[a] for a in args))
+            except ValueError as e:
+                if bad not in str(e) or "aligned" not in str(e):
+                    raise AssertionError(f"{name}: misaligned {bad} refused as {e!r}") from e
+            else:
+                raise AssertionError(f"{name} took a misaligned {bad}")
+            if any(q.launches != before[k] for k, q in qc.KERNELS.items()):
+                raise AssertionError(f"{name} launched on a misaligned {bad}")
+            refused.append(f"{name}:{bad}")
+    return refused
+
+
 def check_kernels(dev) -> dict:
     rng = np.random.default_rng(20261016)
     err = {name: 0 for name in qc.KERNELS}
     cases = 0
-    for v in (1, 3, 5, 7):
-        for n in (BLOCK_LANES, 100_003):
+    for v in range(1, qc.MAX_V + 1):
+        for n in (BLOCK_LANES, BLOCK_LANES + 1, BLOCK_LANES + 2, BLOCK_LANES + 3, 100_003, 3):
             calls = kernel_calls(*quorum_inputs(rng, n, v, dev))
             for name, (kern, plain, _) in calls.items():
                 got, want = kern(), plain()
@@ -243,6 +280,24 @@ def check_kernels(dev) -> dict:
                 diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
                 err[name] = max(err[name], diff)
                 cases += 1
+    # bool masks whose storage holds bytes 2..255 (a bool view of uint8
+    # data): every non-zero byte is a voter, as the plain version sees it
+    for v in range(1, qc.MAX_V + 1):
+        match, mask_in, mask_out = quorum_inputs(rng, BLOCK_LANES + 3, v, dev)
+
+        def wide(m):
+            scale = torch.from_numpy(rng.integers(1, 256, size=tuple(m.shape), dtype=np.uint8))
+            return (m.to(torch.uint8) * scale.to(dev)).view(torch.bool)
+
+        for name, got, want in (
+            ("committed_kernel", qc.committed(match, wide(mask_in)),
+             qr.majority_committed(match, mask_in)),
+            ("joint_kernel", qc.joint_committed(match, wide(mask_in), wide(mask_out)),
+             qr.joint_committed_plain(match, mask_in, mask_out)),
+        ):
+            diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+            err[name] = max(err[name], diff)
+            cases += 1
     bad = {k: e for k, e in err.items() if e != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -265,7 +320,46 @@ def check_kernels(dev) -> dict:
             bytes=b,
             ops=ops,
         )
-    emit("kernels", cases=cases, shape=[BLOCK_LANES, VOTERS], timing=rows)
+    emit("kernels", cases=cases, refused=check_alignment(dev), shape=[BLOCK_LANES, VOTERS],
+         timing=rows, floor=floor_timing(dev))
+    return rows
+
+
+def floor_timing(dev) -> dict:
+    """The fixed cost under committed_kernel and joint_kernel at the main
+    path's shape, on their grid (csrc/quorum.cu raft_quorum_floor_*): an
+    empty launch, and for each kernel a read of its input bytes in 16-byte
+    words that writes its output bytes; ms with the L2 cache overwritten
+    before each launch, warm_ms back to back, as the kernels are timed."""
+    lib = build.load("quorum")
+    empty, read = lib.raft_quorum_floor_empty, lib.raft_quorum_floor_read
+    empty.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    read.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_void_p]
+    empty.restype = read.restype = ctypes.c_int
+    n = BLOCK_LANES
+    out_bytes = 4 * n
+    in_bytes = {k: bytes_moved(k, n, VOTERS) - out_bytes
+                for k in ("committed_kernel", "joint_kernel")}
+    src = torch.zeros(max(in_bytes.values()) // 4 + 4, dtype=torch.int32, device=dev)
+    sink = torch.empty(out_bytes // 4 + 4, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go(fn, *args):
+        def launch():
+            err = fn(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+        return launch
+
+    runs = {"empty": (go(empty, n), "floor_empty", 0)}
+    for k, b in in_bytes.items():
+        runs[f"read_{k}"] = (go(read, src.data_ptr(), b // 16, sink.data_ptr(), n),
+                             "floor_read", b + out_bytes)
+    rows = {}
+    for name, (launch, kernel, b) in runs.items():
+        rows[name] = dict(ms=profiled_ms(launch, kernel, cold=True),
+                          warm_ms=profiled_ms(launch, kernel), bytes=b)
     return rows
 
 
@@ -518,6 +612,14 @@ def build_all() -> None:
         if key == "quorum":
             rows[key]["max_registers"] = max((f["registers"] for f in fns), default=None)
             rows[key]["spill_bytes"] = sum(f["spill_stores"] + f["spill_loads"] for f in fns)
+            # kernel<V>: [registers, stack bytes, spill bytes]
+            rows[key]["ptxas"] = {
+                "{}<{}>".format(*m.groups()):
+                    [f["registers"], f["stack_bytes"], f["spill_stores"] + f["spill_loads"]]
+                for f in fns
+                if (m := re.search(r"((?:committed|joint)_kernel(?:_vm)?)ILi(\d)E",
+                                   f["function"]))
+            }
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
     for d, cta in ROUND_BUILDS:

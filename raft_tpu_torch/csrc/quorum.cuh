@@ -43,44 +43,50 @@ RAFT_HD void reduce_half(const int (&match)[V], const bool (&mask)[V],
     }
   }
   // V - n pad values of -1 sort to the front, so position V - q is the
-  // reference's n - q
-  const int k = V - (n / 2 + 1);
-  int picked = 0;
+  // reference's n - q: r[V - 1 - n / 2], taken as the last c with n >= 2c
+  // (only positions V - 1 - V/2 .. V - 1 are ever picked, so the network's
+  // lower outputs are dead code)
+  int picked = r[V - 1];
 #pragma unroll
-  for (int j = 0; j < V; ++j) picked = (k == j) ? r[j] : picked;
+  for (int c = 1; c <= V / 2; ++c) picked = n >= 2 * c ? r[V - 1 - c] : picked;
   committed = picked;
   empty = (n == 0);
 }
 
-// JointConfig.CommittedIndex (joint.go:49-56): the min of both halves, an
-// empty half counting as 2^31-1.
+// MajorityConfig.CommittedIndex of one half, an empty one counting as
+// 2^31-1.
+template <int V>
+RAFT_HD int majority_committed(const int (&match)[V], const bool (&mask)[V]) {
+  int c;
+  bool e;
+  reduce_half<V>(match, mask, c, e);
+  return e ? kCommittedInf : c;
+}
+
+// JointConfig.CommittedIndex (joint.go:49-56): the min of both halves.
 template <int V>
 RAFT_HD int joint_committed(const int (&match)[V], const bool (&in)[V],
                             const bool (&out)[V]) {
-  int a, b;
-  bool a_e, b_e;
-  reduce_half<V>(match, in, a, a_e);
-  reduce_half<V>(match, out, b, b_e);
-  a = a_e ? kCommittedInf : a;
-  b = b_e ? kCommittedInf : b;
+  const int a = majority_committed<V>(match, in);
+  const int b = majority_committed<V>(match, out);
   return a < b ? a : b;
 }
 
+constexpr int kBadV = 1;  // cudaErrorInvalidValue
+
 }  // namespace raft
 
-#ifdef __CUDACC__
 // Launch LAUNCH(V) for the runtime voter count v (the kernels instantiate
-// V = 1..8); any other v returns cudaErrorInvalidValue from the caller.
-#define RAFT_V_SWITCH(v, LAUNCH)                  \
-  switch (v) {                                    \
-    case 1: LAUNCH(1); break;                     \
-    case 2: LAUNCH(2); break;                     \
-    case 3: LAUNCH(3); break;                     \
-    case 4: LAUNCH(4); break;                     \
-    case 5: LAUNCH(5); break;                     \
-    case 6: LAUNCH(6); break;                     \
-    case 7: LAUNCH(7); break;                     \
-    case 8: LAUNCH(8); break;                     \
-    default: return (int)cudaErrorInvalidValue;  \
+// V = 1..8); any other v returns raft::kBadV from the caller.
+#define RAFT_V_SWITCH(v, LAUNCH)         \
+  switch (v) {                           \
+    case 1: LAUNCH(1); break;            \
+    case 2: LAUNCH(2); break;            \
+    case 3: LAUNCH(3); break;            \
+    case 4: LAUNCH(4); break;            \
+    case 5: LAUNCH(5); break;            \
+    case 6: LAUNCH(6); break;            \
+    case 7: LAUNCH(7); break;            \
+    case 8: LAUNCH(8); break;            \
+    default: return raft::kBadV;         \
   }
-#endif

@@ -2,8 +2,9 @@
 
 Each wrapper takes the plain PyTorch version (ops/quorum.py) for tensors
 on the CPU, and only then; for tensors on the card it checks device, dtype,
-shape and contiguity, launches its kernel on the current stream, and raises
-on anything the kernel does not take or on a refused launch. There is no
+shape, contiguity and, for the lane-major kernels' 16-byte and 32-bit
+loads, alignment, launches its kernel on the current stream, and raises on
+anything the kernel does not take or on a refused launch. There is no
 fallback from the card to the plain version.
 
 Each kernel counts its launches (`KERNELS[name].launches`), so a run can
@@ -47,20 +48,27 @@ class Kernel:
         self._fns = {}
 
     def fn(self, target: build.Target | str | None = None):
-        t = build.as_target(target or self.lib)
-        fn = self._fns.get(t.key)
+        key = target or self.lib
+        fn = self._fns.get(key)
         if fn is None:
-            fn = getattr(build.load(t), self.symbol)
+            fn = getattr(build.load(build.as_target(key)), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fns[t.key] = fn
+            self._fns[key] = fn
         return fn
 
     def launch(self, device: torch.device, *args, target: build.Target | str | None = None):
+        """Call the entry with `args` and the raw handle of `device`'s
+        current stream, making `device` current only when it is not;
+        raises on a non-zero CUDA error."""
         fn = self.fn(target)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*args, stream)
+        index = device.index
+        current = torch._C._cuda_getDevice()  # CUDA is up: device's tensors exist
+        if index is None or index == current:
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
         self.launches += 1
@@ -92,50 +100,58 @@ def _check(what: str, x, dtype, shape, device):
         raise ValueError(f"{what} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != shape:
         raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
 
-def _check_lane_major(match, masks):
-    if match.dim() != 2:
-        raise ValueError(f"match must be [N, V], got shape {tuple(match.shape)}")
-    n, v = match.shape
+def _check_lane_major(dev, match, *masks):
+    """(n, v, data pointers) of lane-major operands on dev: match i32
+    [N, V] and (name, bool [N, V]) masks. The kernels read match in 16-byte
+    and each mask in 32-bit accesses (csrc/quorum.cu), so each must start
+    aligned to that."""
+    shape = match.shape
+    if len(shape) != 2:
+        raise ValueError(f"match must be [N, V], got shape {tuple(shape)}")
+    n, v = shape
     if not 1 <= v <= MAX_V:
         raise ValueError(f"the quorum kernels take 1 <= V <= {MAX_V}, got V={v}")
-    _check("match", match, I32, (n, v), match.device)
-    for name, m in masks.items():
-        _check(name, m, torch.bool, (n, v), match.device)
-    return n, v
+    _check("match", match, I32, shape, dev)
+    ptrs = [match.data_ptr()]
+    if ptrs[0] % 16:
+        raise ValueError("match must start 16-byte aligned")
+    for name, m in masks:
+        _check(name, m, torch.bool, shape, dev)
+        ptrs.append(m.data_ptr())
+        if ptrs[-1] % 4:
+            raise ValueError(f"{name} must start 4-byte aligned")
+    return n, v, ptrs
 
 
 def committed(match, mask):
     """MajorityConfig.CommittedIndex per lane: match i32 [N, V], mask bool
     [N, V] -> i32 [N] (the kernel of quorum_pallas.committed_pallas)."""
-    if match.device.type == "cpu":
+    dev = match.device
+    if dev.type == "cpu":
         return plain.majority_committed(match, mask)
-    n, v = _check_lane_major(match, {"mask": mask})
-    out = torch.empty(n, dtype=I32, device=match.device)
+    n, v, ptrs = _check_lane_major(dev, match, ("mask", mask))
+    out = match.new_empty(n)  # the allocator's blocks are 512-byte aligned
     if n:
-        KERNELS["committed_kernel"].launch(
-            match.device, match.data_ptr(), mask.data_ptr(), out.data_ptr(), n, v
-        )
+        KERNELS["committed_kernel"].launch(dev, *ptrs, out.data_ptr(), n, v)
     return out
 
 
 def joint_committed(match, mask_in, mask_out):
     """JointConfig.CommittedIndex per lane: match i32 [N, V], voter masks
     bool [N, V] -> i32 [N] (the kernel of joint_committed_pallas)."""
-    if match.device.type == "cpu":
+    dev = match.device
+    if dev.type == "cpu":
         return plain.joint_committed_plain(match, mask_in, mask_out)
-    n, v = _check_lane_major(match, {"mask_in": mask_in, "mask_out": mask_out})
-    out = torch.empty(n, dtype=I32, device=match.device)
+    n, v, ptrs = _check_lane_major(dev, match, ("mask_in", mask_in), ("mask_out", mask_out))
+    out = match.new_empty(n)
     if n:
-        KERNELS["joint_kernel"].launch(
-            match.device, match.data_ptr(), mask_in.data_ptr(),
-            mask_out.data_ptr(), out.data_ptr(), n, v,
-        )
+        KERNELS["joint_kernel"].launch(dev, *ptrs, out.data_ptr(), n, v)
     return out
 
 

@@ -145,3 +145,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     match = torch.zeros((3, 8), dtype=torch.int32, device="meta").t()
     with pytest.raises(ValueError, match="contiguous"):
         tqc.joint_committed(match, mask, mask)
+
+
+@pytest.mark.parametrize(
+    "wrapper,bad",
+    [("committed", "match"), ("committed", "mask"), ("joint_committed", "match"),
+     ("joint_committed", "mask_in"), ("joint_committed", "mask_out")],
+)
+def test_wrapper_refuses_misaligned_operands(wrapper, bad):
+    """The quad kernels read match in 16-byte and each mask in 32-bit
+    accesses: a view one element off its allocation is refused by name
+    before any launch (meta tensors carry the offset in data_ptr)."""
+    n, v = 8, 3
+    ops = {}
+    for name, dtype in (("match", torch.int32), ("mask", torch.bool),
+                        ("mask_in", torch.bool), ("mask_out", torch.bool)):
+        base = torch.zeros(n * v + 1, dtype=dtype, device="meta")
+        ops[name] = (base[1:] if name == bad else base[:-1]).view(n, v)
+    args = ("match", "mask") if wrapper == "committed" else ("match", "mask_in", "mask_out")
+    before = {k: q.launches for k, q in tqc.KERNELS.items()}
+    with pytest.raises(ValueError, match=f"^{bad} must start .*aligned"):
+        getattr(tqc, wrapper)(*(ops[a] for a in args))
+    assert {k: q.launches for k, q in tqc.KERNELS.items()} == before
