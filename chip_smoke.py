@@ -12,9 +12,10 @@ last lists every ported kernel; the last line is
 Phases:
   device   the card's name and power limit (nvidia-smi)
   build    nvcc of csrc/quorum.cu and of csrc/round.cu for each (Shape,
-           CUDA block) the script uses (ROUND_BUILDS: W16/E2/F2/R2 at V=3
-           with the engine's 96-lane block and 6, 48 and 192 lanes, and at
-           V=5 with 10), all started together: seconds of each, ptxas's
+           CUDA block, carry layout) the script uses (ROUND_BUILDS:
+           W16/E2/F2/R2 at V=3 with the engine's 96-lane block and 6, 48 and
+           192 lanes, at V=5 with 10, and the diet-v2 build at V=3 with 96
+           and 6), all started together: seconds of each, ptxas's
            registers, stack frame and spills of every kernel function
            (each quorum kernel at each V), and the round kernel's shared
            memory and resident blocks per SM
@@ -61,6 +62,27 @@ Phases:
   profile_pallas one K=1 round of every block under torch.profiler: CUDA
            kernels per block-round, device busy share, the megakernel's
            share of the device time
+  round_kernel_diet  the diet-v2 build (-DRAFT_DIET=1) against
+           round_kernel_ref on the packed carry: K in {1,3,8}, 9 rounds as
+           pallas_rounds launches them, on a carry in range and on one
+           brought to 65,531 so that appends overflow the packed uint16
+           columns (clamps and ERR_DIET_OVERFLOW bits compared too); every
+           leaf exact
+  parity_diet    diet=True on the card against the eager CPU path with
+           diet=True, 64 groups x 33 rounds: eager, pallas K=1 and K=3;
+           the CPU's diet host_state against its slim run; and a run that
+           fast-forwards by 48 Ki so the automatic rebase fires (pallas K=3
+           on the card against the CPU)
+  main_pallas_diet  the main_pallas cluster with diet=True at K=8 and K=1:
+           the same gates (round_kernel_diet launches = rounds x blocks / K,
+           no round_kernel or joint_kernel launch), a host_state digest
+           equal to the slim run's at the same K, and round_ms, peak memory
+           (reset at the start of each run) and the resident carry's bytes
+           per lane beside the slim run's (main_pallas_diet_vs_slim); at K=1
+           the diet build timed at the main path's shape
+           (round_kernel_diet_timing) and profiled (profile_pallas_diet)
+  eager_diet     the eager engine on 2 of the main path's blocks, 40 rounds,
+           diet on and off: one host_state digest, one total_committed
 """
 
 from __future__ import annotations
@@ -81,21 +103,25 @@ from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import quorum as qr
 from raft_tpu_torch.ops import quorum_cuda as qc
 from raft_tpu_torch.ops import round_cuda as rc
-from raft_tpu_torch.ops.fused import FusedCluster
+from raft_tpu_torch.ops.fused import FusedCluster, fused_rounds
 from raft_tpu_torch.scheduler import BlockedFusedCluster
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
 # quorum kernels' compares, selects and adds are 32-bit scalar operations
 SCALAR_OPS_PER_S = 67e12
 # The libraries of csrc/round.cu this script builds, as (Shape, CUDA block
-# lanes): bench.py's widths at the main path's V, at its engine block and at
-# the small blocks check_round_kernel uses, and at the second V; plus two
-# more engine blocks at V=3 for the block-size sweep of round_kernel_timing.
+# lanes, diet-v2 build): bench.py's widths at the main path's V, at its
+# engine block and at the small blocks check_round_kernel uses, and at the
+# second V; two more engine blocks at V=3 for the block-size sweep of
+# round_kernel_timing; and the diet build at the engine block and the small
+# block.
 BENCH_WIDTHS = dict(w=16, e=2, f=2, r=2)
-ROUND_BUILDS = [(dict(v=3, **BENCH_WIDTHS), 96), (dict(v=3, **BENCH_WIDTHS), 6),
-                (dict(v=5, **BENCH_WIDTHS), 10), (dict(v=3, **BENCH_WIDTHS), 48),
-                (dict(v=3, **BENCH_WIDTHS), 192)]
+ROUND_BUILDS = [(dict(v=3, **BENCH_WIDTHS), 96, False), (dict(v=3, **BENCH_WIDTHS), 6, False),
+                (dict(v=5, **BENCH_WIDTHS), 10, False), (dict(v=3, **BENCH_WIDTHS), 48, False),
+                (dict(v=3, **BENCH_WIDTHS), 192, False), (dict(v=3, **BENCH_WIDTHS), 96, True),
+                (dict(v=3, **BENCH_WIDTHS), 6, True)]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -394,8 +420,24 @@ def check_parity():
 # -- the main path -------------------------------------------------------------
 
 
+def host_digest(c) -> str:
+    """sha256 over every block's host_state leaves (the slim view, whether
+    or not the carry is packed), block after block."""
+    return interop.digest(*(interop.to_numpy_leaves(b.host_state()) for b in c.blocks))
+
+
+def carry_bytes_per_lane(c) -> float:
+    """Device bytes of the resident carry (state, config and fabric leaves)
+    per lane."""
+    total = sum(x.numel() * x.element_size() for b in c.blocks
+                for x in rc._state_leaves(b.state) + rc._cfg_leaves(b.state)
+                + rc._fab_leaves(b.fab))
+    return total / (c.g * c.v)
+
+
 def run_main(dev, phase="main", **engine):
     lag = 8
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     c = BlockedFusedCluster(
         MAIN_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS, seed=42,
@@ -432,6 +474,10 @@ def run_main(dev, phase="main", **engine):
     k = engine.get("rounds_per_call", 1)
     pallas = engine.get("engine") == "pallas"
     expect = rounds * c.k // k
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    extra = {}
+    if pallas:
+        extra = dict(carry_bytes_per_lane=carry_bytes_per_lane(c), digest=host_digest(c))
     emit(
         phase, **engine,
         groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k, block_groups=MAIN_BLOCK_GROUPS,
@@ -442,18 +488,21 @@ def run_main(dev, phase="main", **engine):
         commits_per_group_round=commits / (MAIN_GROUPS * VOTERS * TIMED_ROUNDS),
         leaders=leaders, check_no_errors=True,
         metrics={k: v for k, v in snap["counters"].items() if v},
-        launches=launches, expected_launches=expect,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, expected_launches=expect, peak_mem_gb=peak_gb, **extra,
     )
     if leaders != MAIN_GROUPS or commits <= 0:
         raise AssertionError(f"{phase}: {leaders} leaders, {commits} commits")
     if pallas and commits != MAIN_GROUPS * VOTERS * TIMED_ROUNDS:
         raise AssertionError(f"{phase}: commits per group-round is not 1.0")
-    want = {"round_kernel": expect, "joint_kernel": 0} if pallas else {"joint_kernel": expect}
+    diet = engine.get("diet", False)
+    want = {"joint_kernel": 0 if pallas else expect}
+    if pallas:
+        want.update(round_kernel_diet=expect if diet else 0, round_kernel=0 if diet else expect)
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{phase}: {name} launched {launches[name]} times, expected {n}")
-    return c, launches, 1e3 * dt / TIMED_ROUNDS
+    return c, launches, 1e3 * dt / TIMED_ROUNDS, dict(round_ms=1e3 * dt / TIMED_ROUNDS,
+                                                      peak_mem_gb=peak_gb, **extra)
 
 
 # -- the round megakernel ------------------------------------------------------
@@ -542,6 +591,128 @@ def check_parity_pallas():
     emit("parity_pallas", groups=g, rounds=33, digests=out)
 
 
+def diet_cluster(dev, g: int, seed: int, near: bool):
+    """A diet cluster of g groups x 3 voters at the bench widths, warmed 12
+    eager rounds; with `near`, its index space fast-forwarded to just under
+    65,535 (a negative rebase), so that the next rounds overflow the packed
+    uint16 columns."""
+    c = FusedCluster(g, VOTERS, seed=seed, device=dev, shape=bench_shape(g * VOTERS),
+                     diet=True)
+    c.run(12, auto_propose=True, auto_compact_lag=4)
+    if near:
+        approach_u16_top(c)
+    return c
+
+
+def approach_u16_top(c, top: int = 65531):
+    """Fast-forward c's index space by a window-aligned negative rebase,
+    then run eager rounds past FusedCluster.run (whose automatic rebase
+    would undo it) until the largest index is `top`: a few appends short
+    of the packed uint16 range."""
+    w = c.shape.w
+    c.rebase_groups(range(c.g), delta=-(((top - int(c.host_state().last.max())) // w) * w))
+    while int(c.host_state().last.max()) < top:
+        c.state, c.fab, c.metrics = fused_rounds(
+            c.state, c.fab, c._no_ops, c.mute, v=c.v, n_rounds=1, auto_propose=True,
+            auto_compact_lag=4, metrics=c.metrics)
+
+
+def check_round_kernel_diet(dev):
+    """The diet build against round_kernel_ref on the packed carry over 9
+    rounds per case, launched as pallas_rounds launches them at K = 1, 3
+    and 8, on a carry in range and on one that overflows the packed uint16
+    columns (its clamps and ERR_DIET_OVERFLOW bits must agree too); raises
+    naming the first differing leaf."""
+    cases, flagged = 0, 0
+    for near in (False, True):
+        for k in (1, 3, 8):
+            c = diet_cluster(dev, 16, seed=5, near=near)
+            c.set_mute([4])
+            n = c.g * c.v
+            ops = c.ops(hup={0: True}, prop_n={i: 2 for i in range(n)}, prop_bytes=7,
+                        read_ctx={i: 100 + i for i in range(n)})
+            plan = [k] * (9 // k) + ([9 % k] if 9 % k else [])
+            for i, kc in enumerate(plan):
+                got, want = launch_pair(c, ops, kc, i == 0, cta=2 * c.v, mute=c.mute)
+                torch.cuda.synchronize()
+                bad = first_difference(carry_leaves(*got), carry_leaves(*want))
+                if bad is not None:
+                    raise AssertionError(f"round_kernel_diet K={k} near={near} launch {i}: "
+                                         f"first differing leaf {bad}")
+                c.state, c.fab = got[0], got[1]
+                c.metrics = plr.fold_partials(c.metrics, got[2], got[3], kc)
+                cases += 1
+            hit = int(((c.state.error_bits & ERR_DIET_OVERFLOW) != 0).sum())
+            if (hit > 0) != near:
+                raise AssertionError(f"round_kernel_diet K={k} near={near}: {hit} lanes flagged")
+            flagged += hit
+    emit("round_kernel_diet", launches_compared=cases, cases="K{1,3,8} x {in range, overflow}",
+         rounds_per_case=9, overflow_lanes_flagged=flagged, max_abs_err=0)
+
+
+def check_parity_diet():
+    """diet=True on the card against the eager CPU path with diet=True, 64
+    groups x 33 rounds: the eager engine and engine="pallas" at K=1 and 3;
+    the CPU's diet host_state against its slim run; and a run through the
+    automatic rebase: fast-forward by 48 Ki, run on (the rebase fires
+    before the next dispatch), pallas K=3 on the card against the CPU."""
+    g = 64
+    shape = bench_shape(g * VOTERS)
+
+    def run(dev, diet=True, **engine):
+        c = FusedCluster(g, VOTERS, seed=11, shape=shape, device=dev, diet=diet, **engine)
+        c.run(33, auto_propose=True, auto_compact_lag=4)
+        return c
+
+    def digest(c):
+        return interop.digest(interop.to_numpy_leaves(c.state) + interop.to_numpy_leaves(c.fab)
+                              + interop.to_numpy_leaves(c.metrics))
+
+    cpu = run("cpu")
+    out = {"cpu": digest(cpu)}
+    if interop.digest(interop.to_numpy_leaves(cpu.host_state())) != interop.digest(
+            interop.to_numpy_leaves(run("cpu", diet=False).state)):
+        raise AssertionError("parity_diet: the CPU's diet host_state differs from its slim run")
+    for name, engine in (("eager", {}), ("pallas_k1", dict(engine="pallas", rounds_per_call=1)),
+                         ("pallas_k3", dict(engine="pallas", rounds_per_call=3))):
+        out[name] = digest(run("cuda", **engine))
+        if out[name] != out["cpu"]:
+            raise AssertionError(f"parity_diet {name}: card {out[name]} != cpu {out['cpu']}")
+    rebased = {}
+    for dev, engine in (("cuda", dict(engine="pallas", rounds_per_call=3)), ("cpu", {})):
+        c = run(dev, **engine)
+        c.rebase_groups(range(g), delta=-(48 * 1024))
+        before = int(c.state_columns("last")["last"].max())
+        c.run(15, auto_propose=True, auto_compact_lag=4)
+        after = int(c.state_columns("last")["last"].max())
+        if before < 48 * 1024 or after >= c.DIET_REBASE_AT:
+            raise AssertionError(f"parity_diet rebase on {dev}: last {before} -> {after}")
+        c.check_no_errors()
+        rebased[dev] = dict(max_last_before=before, max_last_after=after, digest=digest(c))
+    if rebased["cuda"]["digest"] != rebased["cpu"]["digest"]:
+        raise AssertionError("parity_diet: card and CPU differ after the automatic rebase")
+    emit("parity_diet", groups=g, rounds=33, digests=out, auto_rebase=rebased)
+
+
+def check_eager_diet(dev):
+    """The eager engine with diet=True on 2 blocks of the main path's
+    blocks, 40 rounds: its host_state digest against the slim run's."""
+    out = {}
+    for diet in (False, True):
+        c = BlockedFusedCluster(2 * MAIN_BLOCK_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS,
+                                seed=42, shape=bench_shape(BLOCK_LANES), round_chunk=8,
+                                device=dev, diet=diet)
+        c.run(40, auto_propose=True, auto_compact_lag=8)
+        c.check_no_errors()
+        out[diet] = dict(digest=host_digest(c), total_committed=c.total_committed(),
+                         leaders=c.leader_count())
+        del c
+    emit("eager_diet", blocks=2, block_groups=MAIN_BLOCK_GROUPS, rounds=40,
+         slim=out[False], diet=out[True])
+    if out[True] != out[False]:
+        raise AssertionError("eager_diet: the diet run differs from the slim run")
+
+
 def round_bytes(args, outputs) -> int:
     """Bytes one launch must move: every input leaf read once, every output
     leaf written once (cfg is read; the output state shares it)."""
@@ -567,11 +738,11 @@ def round_ops(n: int, v: int, w: int, e: int, f: int, r: int) -> int:
     return per_lane * n
 
 
-def round_occupancy(d: dict, cta: int) -> dict:
+def round_occupancy(d: dict, cta: int, diet: bool = False) -> dict:
     """csrc/round.cu raft_round_info for the Shape's library: shared memory
     of a block of cta lanes, resident blocks per SM, registers and local
     (stack) bytes per thread, as the runtime reports them."""
-    fn = build.load(rc.target(d, cta)).raft_round_info
+    fn = build.load(rc.target(d, cta, diet)).raft_round_info
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
@@ -604,7 +775,7 @@ def engine_cta(d: dict) -> int:
 
 def build_all() -> None:
     t0 = time.perf_counter()
-    built = build.build("quorum", *(rc.target(d, cta) for d, cta in ROUND_BUILDS))
+    built = build.build("quorum", *(rc.target(d, cta, diet) for d, cta, diet in ROUND_BUILDS))
     rows = {}
     for key, b in built.items():
         fns = ptxas_report(b.log)
@@ -622,24 +793,26 @@ def build_all() -> None:
             }
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
-    for d, cta in ROUND_BUILDS:
-        rows[rc.target(d, cta).key].update(cta_lanes=cta, **round_occupancy(d, cta))
+    for d, cta, diet in ROUND_BUILDS:
+        rows[rc.target(d, cta, diet).key].update(cta_lanes=cta, **round_occupancy(d, cta, diet))
     emit("build", seconds=time.perf_counter() - t0, targets=rows)
 
 
-def time_round_kernel(c):
+def time_round_kernel(c, phase="round_kernel_timing"):
     """Launches at the main path's shape (block 0's carry) against the plain
     version, K=1 and K=8; the kernel timed on raw launches (the arguments
     packed once: the wrapper's per-call packing, about a millisecond of host
     time, would otherwise set the pace) beside its wrapper, the plain
-    version and the bound; then raw K=1 launches at other CUDA blocks."""
+    version and the bound; then, for the slim build, raw K=1 launches at
+    other CUDA blocks. A packed carry (diet=True) times the diet build."""
     b = c.blocks[0]
     shape = b.shape
     d = rc.dims_of(b.state, b.fab, b.v)
     cta = engine_cta(d)
     m = b.metrics
     args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
-    kern = rc.KERNELS["round_kernel"]
+    diet = b._diet
+    kern = rc.KERNELS["round_kernel_diet" if diet else "round_kernel"]
 
     def kw(kc, cta=cta):
         return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True,
@@ -648,7 +821,8 @@ def time_round_kernel(c):
     def raw(kc, cta=cta):
         ptrs, dims, flags, lag, outs = rc.pack(*args, **kw(kc, cta))
         arr, nptr, cdims = rc.as_c_args(ptrs, dims)
-        return raw_launch(kern, arr, nptr, cdims, flags, lag, target=rc.target(d, cta)), outs
+        return raw_launch(kern, arr, nptr, cdims, flags, lag,
+                          target=rc.target(d, cta, diet)), outs
 
     def carry(res):  # state and fabric: the same at every CUDA block
         return [x for x in carry_leaves(*res) if x[0].startswith(("state.", "fabric."))]
@@ -662,7 +836,7 @@ def time_round_kernel(c):
         torch.cuda.synchronize()
         bad = first_difference(carry_leaves(*outs), carry_leaves(*wants[kc]))
         if bad is not None:
-            raise AssertionError(f"round_kernel K={kc} at the main path's shape: "
+            raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
                                  f"first differing leaf {bad}")
         nbytes = round_bytes(args, outs)
         ops = kc * round_ops(shape.n_lanes, b.v, shape.log_window, shape.max_msg_entries,
@@ -678,13 +852,14 @@ def time_round_kernel(c):
         if kc == 1:
             rows[kc].update(
                 profiled_ms=profiled_ms(go, "round_kernel", iters=20),
+                **round_occupancy(d, cta, diet),
                 wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
                 plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
             )
         del go, outs
     sweep = {}
     tile = b._pallas_tile
-    for cb in sorted({48, 96, 192, cta}):
+    for cb in [] if diet else sorted({48, 96, 192, cta}):
         if tile % cb or cb % b.v or rc.smem_bytes(d, cb) > rc.MAX_SMEM:
             continue
         sweep[cb] = round_occupancy(d, cb)
@@ -698,7 +873,7 @@ def time_round_kernel(c):
             sweep[cb][f"k{kc}_ms"] = cuda_ms(go, iters=50 if kc == 1 else 10)
             del go, outs
     row = dict(rows[1], cta_lanes=cta, lanes=shape.n_lanes, k8=rows[8], cta_sweep=sweep)
-    emit("round_kernel_timing", **row)
+    emit(phase, **row)
     return row
 
 
@@ -735,6 +910,7 @@ def profile_round(c, round_ms: float, phase: str = "profile"):
     )
     if not kernels:
         raise AssertionError(f"{phase}: the profiler saw no CUDA kernel")
+    return busy_ms / round_ms
 
 
 def main() -> int:
@@ -752,32 +928,56 @@ def main() -> int:
 
     timing = check_kernels(dev)
     check_parity()
-    c, launches, round_ms = run_main(dev)
+    c, launches, round_ms, _ = run_main(dev)
     profile_round(c, round_ms)
     del c
     torch.cuda.empty_cache()
 
     check_round_kernel(dev)
     check_parity_pallas()
-    c8, launches8, _ = run_main(dev, "main_pallas", engine="pallas", rounds_per_call=8)
-    del c8
-    c1, launches1, round_ms1 = run_main(dev, "main_pallas", engine="pallas", rounds_per_call=1)
-    timing["round_kernel"] = time_round_kernel(c1)
-    profile_round(c1, round_ms1, "profile_pallas")
-    launches["round_kernel"] = launches1["round_kernel"]
+    slim = {}
+    for k in (8, 1):
+        c, launches_k, round_ms_k, slim[k] = run_main(
+            dev, "main_pallas", engine="pallas", rounds_per_call=k)
+        if k == 1:
+            timing["round_kernel"] = time_round_kernel(c)
+            slim[k]["device_busy_share"] = profile_round(c, round_ms_k, "profile_pallas")
+            launches["round_kernel"] = launches_k["round_kernel"]
+        del c
+        torch.cuda.empty_cache()
+
+    # the diet-v2 packed carry: its kernel, the card against the CPU, and
+    # the main path with diet=True against the slim runs above
+    check_round_kernel_diet(dev)
+    check_parity_diet()
+    for k in (8, 1):
+        c, launches_k, round_ms_k, diet = run_main(
+            dev, "main_pallas_diet", engine="pallas", rounds_per_call=k, diet=True)
+        if k == 1:
+            timing["round_kernel_diet"] = time_round_kernel(c, "round_kernel_diet_timing")
+            diet["device_busy_share"] = profile_round(c, round_ms_k, "profile_pallas_diet")
+            launches["round_kernel_diet"] = launches_k["round_kernel_diet"]
+        emit("main_pallas_diet_vs_slim", rounds_per_call=k, diet=diet, slim=slim[k])
+        if diet["digest"] != slim[k]["digest"]:
+            raise AssertionError(f"main_pallas_diet K={k}: host_state digest differs from slim")
+        del c
+        torch.cuda.empty_cache()
+    check_eager_diet(dev)
 
     replaces = {
         "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
         "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
         "joint_kernel_vm": "raft_tpu/ops/quorum_pallas.py:120",
         "round_kernel": "raft_tpu/ops/pallas_round.py:564",
+        "round_kernel_diet": "raft_tpu/ops/pallas_round.py:599",
     }
-    kernels = [
-        {
+    kernels = []
+    for name in replaces:
+        row = {
             "name": name,
             "route": "cuda",
             "source": "raft_tpu_torch/csrc/"
-            + ("round.cu" if name == "round_kernel" else "quorum.cu"),
+            + ("round.cu" if name.startswith("round_kernel") else "quorum.cu"),
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": timing[name]["max_abs_err"],
@@ -789,8 +989,9 @@ def main() -> int:
             # or a raft round
             "library_ms": None,
         }
-        for name in replaces
-    ]
+        if name.startswith("round_kernel"):
+            row["ms_per_round_k8"] = timing[name]["k8"]["ms_per_round"]
+        kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

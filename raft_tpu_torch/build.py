@@ -2,8 +2,9 @@
 interface, and load them with ctypes.
 
 A build target is a source `csrc/<source>.cu` and the `-D` macros it is
-compiled with (csrc/round.cu takes the Shape that way, so each Shape a run
-uses is one library). Each target compiles with `nvcc` for Hopper
+compiled with (csrc/round.cu takes the Shape, its block stride and, for
+the diet-v2 packed carry, RAFT_DIET=1 that way, so each Shape, block and
+carry layout a run uses is one library). Each target compiles with `nvcc` for Hopper
 (`sm_90a`) on first use into `csrc/build/<key>-<hash>.so`, keyed by a hash
 of the source, the shared headers (`csrc/*.cuh`), the flags and the
 macros, so an edited source or header rebuilds and an unchanged one is
@@ -42,7 +43,7 @@ class Target:
 
     @property
     def key(self) -> str:
-        """e.g. "quorum", "round-v3-w16-e2-f2-r2"."""
+        """e.g. "quorum", "round-v3-w16-e2-f2-r2-s96-diet1"."""
         return self.source + "".join(
             f"-{name.removeprefix('RAFT_').lower()}{value}" for name, value in self.defines
         )

@@ -21,6 +21,10 @@ DEFAULT_MAX_SIZE_PER_MSG = 1 << 20
 DEFAULT_MAX_UNCOMMITTED_SIZE = 1 << 30
 DEFAULT_MAX_COMMITTED_SIZE_PER_READY = 1 << 20
 
+# The diet-v2 packed carry stores rebased index columns as uint16, so the
+# window must stay far under 2^16 (raft_tpu/config.py MAX_LOG_WINDOW).
+MAX_LOG_WINDOW = 1 << 14
+
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
@@ -33,6 +37,8 @@ class Shape:
     max_msg_entries: entries carried per MsgApp ("E").
     max_inflight: per-peer in-flight MsgApp window ("F").
     max_read_index: outstanding ReadIndex requests per lane ("R").
+    max_entry_bytes: the largest entry payload the diet-v2 packed carry
+      stores (its entry-size columns are int16).
     """
 
     n_lanes: int
@@ -41,6 +47,7 @@ class Shape:
     max_msg_entries: int = 8
     max_inflight: int = 8
     max_read_index: int = 4
+    max_entry_bytes: int = 32767
 
     def __post_init__(self):
         if self.log_window & (self.log_window - 1):
@@ -51,8 +58,26 @@ class Shape:
             if not 1 <= getattr(self, f) <= 127:
                 raise ValueError(f"{f} must be in 1..127 (int8 carry diet; "
                                  "inbox sizing assumes at least 1)")
+        # the diet-v2 packed carry (state.pack_state) stores the per-peer
+        # bool masks as one bitset word per lane, the rebased index columns
+        # as uint16 and the entry sizes as int16
         if not 1 <= self.max_peers <= 32:
-            raise ValueError("max_peers must be in 1..32")
+            raise ValueError(
+                "max_peers must be in 1..32 (diet-v2 packs the [N, V] bool "
+                "masks into one bitset word per lane)"
+            )
+        if self.log_window > MAX_LOG_WINDOW:
+            raise ValueError(
+                f"log_window must be <= MAX_LOG_WINDOW={MAX_LOG_WINDOW} "
+                "(diet-v2 stores rebased index columns as uint16; the "
+                "post-rebase space is a few windows plus the between-rebase "
+                "growth budget)"
+            )
+        if not 1 <= self.max_entry_bytes <= 32767:
+            raise ValueError(
+                "max_entry_bytes must be in 1..32767 (diet-v2 stores entry "
+                "size columns as int16)"
+            )
 
     @property
     def n(self) -> int:

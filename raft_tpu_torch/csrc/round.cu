@@ -37,6 +37,15 @@
 //   round bit for bit). Nothing selects an element of them by a
 //   data-dependent index (a bit mask does, where the reference does):
 //   such an index keeps the whole carry in local memory.
+// - The diet-v2 build (-DRAFT_DIET=1, the packed carry of state.py
+//   pack_state and ops/fused.py pack_fabric): the same registers and
+//   shared-memory columns, the same rounds. Only the device-memory rows
+//   differ (RAFT_*_DIET below: uint16/int16/int8 columns, bitset words):
+//   widened at load, narrowed at store, and between rounds every value
+//   that packs narrower is clamped to its range with ERR_DIET_OVERFLOW on
+//   its lane, as store_carry then load_carry do. The rings stay in their
+//   slim dtypes in shared memory, so no value a round writes and reads
+//   back is clamped before the boundary.
 // - Shared memory, element e of lane t at [e * s + t]: the rings indexed
 //   by data (log window, inflights, ReadIndex queues; s = S, so a warp
 //   hits 32 banks whatever elements its threads pick), in their slim
@@ -207,6 +216,77 @@
   X(prop_cc, I32, LANE)      \
   X(beat, BOOL, LANE)
 
+// The diet-v2 packed layout (raft_tpu_torch/state.py pack_state and
+// ops/fused.py pack_fabric, the kernel's V <= 8 making every bitset one
+// byte): the leaves whose storage differs from the tables above, in table
+// order, X(name, packed dtype, packed shape). A -DRAFT_DIET=1 build reads
+// and writes these in device memory; its rounds run on the same registers
+// and shared-memory columns as the slim build.
+#define RAFT_STATE_DIET(X)                \
+  X(id, I8, LANE)                         \
+  X(term, U16, LANE)                      \
+  X(vote, I8, LANE)                       \
+  X(lead, I8, LANE)                       \
+  X(lead_transferee, I8, LANE)            \
+  X(pending_conf_index, U16, LANE)        \
+  X(log_term, U16, WIN)                   \
+  X(log_bytes, I16, WIN)                  \
+  X(last, U16, LANE)                      \
+  X(stabled, U16, LANE)                   \
+  X(committed, U16, LANE)                 \
+  X(applying, U16, LANE)                  \
+  X(applied, U16, LANE)                   \
+  X(snap_index, U16, LANE)                \
+  X(snap_term, U16, LANE)                 \
+  X(pending_snap_index, U16, LANE)        \
+  X(pending_snap_term, U16, LANE)         \
+  X(avail_snap_index, U16, LANE)          \
+  X(avail_snap_term, U16, LANE)           \
+  X(prs_id, I8, PEER)                     \
+  X(voters_in, U8, LANE)                  \
+  X(voters_out, U8, LANE)                 \
+  X(learners, U8, LANE)                   \
+  X(learners_next, U8, LANE)              \
+  X(pr_match, U16, PEER)                  \
+  X(pr_next, U16, PEER)                   \
+  X(pr_pending_snapshot, U16, PEER)       \
+  X(pr_recent_active, U8, LANE)           \
+  X(pr_msg_app_flow_paused, U8, LANE)     \
+  X(infl_index, U16, INFL)                \
+  X(ro_from, I8, READ)                    \
+  X(ro_index, U16, READ)                  \
+  X(ro_acks, U8, READ)                    \
+  X(pri_from, I8, READ)                   \
+  X(rs_index, U16, READ)
+
+#define RAFT_CFG_DIET(X)                       \
+  X(election_tick, I16, LANE)                  \
+  X(heartbeat_tick, I16, LANE)                 \
+  X(max_inflight, I8, LANE)
+
+#define RAFT_FABRIC_DIET(X)     \
+  X(rep_term, U16, PEER)        \
+  X(rep_index, U16, PEER)       \
+  X(rep_log_term, U16, PEER)    \
+  X(rep_commit, U16, PEER)      \
+  X(rep_reject_hint, U16, PEER) \
+  X(rep_ent_term, U16, ENT)     \
+  X(rep_ent_bytes, I16, ENT)    \
+  X(rep_snap_index, U16, PEER)  \
+  X(rep_snap_term, U16, PEER)   \
+  X(hb_term, U16, PEER)         \
+  X(hb_commit, U16, PEER)       \
+  X(vote_term, U16, PEER)       \
+  X(vote_index, U16, PEER)      \
+  X(vote_log_term, U16, PEER)   \
+  X(vresp_term, U16, PEER)      \
+  X(self_term, U16, LANE)       \
+  X(self_index, U16, LANE)
+
+#ifndef RAFT_DIET
+#define RAFT_DIET 0
+#endif
+
 #if !defined(RAFT_V) || !defined(RAFT_W) || !defined(RAFT_E) || \
     !defined(RAFT_F) || !defined(RAFT_R) || !defined(RAFT_S)
 #error "build round.cu for one Shape and block: -DRAFT_V= -DRAFT_W= -DRAFT_E= -DRAFT_F= -DRAFT_R= -DRAFT_S="
@@ -241,10 +321,13 @@ constexpr int kOpsN = 0 RAFT_OPS_FIELDS(RAFT_COUNT);
 
 // leaf indexes in table order
 #define RAFT_ENUM_STATE(name, dt, shape) SL_##name,
+#define RAFT_ENUM_CFG(name, dt, shape) CL_##name,
 #define RAFT_ENUM_FAB(name, dt, shape) FL_##name,
 enum : int { RAFT_STATE_FIELDS(RAFT_ENUM_STATE) };
+enum : int { RAFT_CFG_FIELDS(RAFT_ENUM_CFG) };
 enum : int { RAFT_FABRIC_FIELDS(RAFT_ENUM_FAB) };
 #undef RAFT_ENUM_STATE
+#undef RAFT_ENUM_CFG
 #undef RAFT_ENUM_FAB
 
 // The pointer table, in this order (round_cuda.py builds the same list):
@@ -312,6 +395,7 @@ constexpr int ERR_WINDOW_OVERFLOW = 8;
 constexpr int ERR_APPLIED_OUT_OF_RANGE = 16;
 constexpr int ERR_INDEX_NEAR_OVERFLOW = 32;
 constexpr int INDEX_OVERFLOW_MARGIN = 1 << 30;
+constexpr int ERR_DIET_OVERFLOW = 64;  // state.py: a value clamped at the diet boundary
 constexpr int BIG = 2147483647;
 
 struct Args {
@@ -335,8 +419,38 @@ struct Args {
 #define RAFT_ST_I8 int8_t
 #define RAFT_ST_BOOL uint8_t
 #define RAFT_ST_U32 uint32_t
+#define RAFT_ST_U16 uint16_t
+#define RAFT_ST_U8 uint8_t
 
 enum : int { K_LANE, K_PEER, K_WIN, K_INFL, K_READ, K_READ_PEER, K_ENT };
+
+// How leaf K of group G is stored in device memory, given its slim
+// storage type ST: as ST (T = ST, kind -1: the slim table's shape), or in
+// a diet build as its RAFT_*_DIET row (T and kind from there).
+enum : int { G_STATE, G_CFG, G_FAB };
+template <int G, int K, typename ST>
+struct Store {
+  using T = ST;
+  static constexpr int kind = -1;
+};
+#if RAFT_DIET
+#define RAFT_STORE_ROW(group, leaf, dt, shape) \
+  template <typename ST>                       \
+  struct Store<group, leaf, ST> {              \
+    using T = RAFT_ST_##dt;                    \
+    static constexpr int kind = K_##shape;     \
+  };
+#define RAFT_STORE_STATE(name, dt, shape) RAFT_STORE_ROW(G_STATE, SL_##name, dt, shape)
+#define RAFT_STORE_CFG(name, dt, shape) RAFT_STORE_ROW(G_CFG, CL_##name, dt, shape)
+#define RAFT_STORE_FAB(name, dt, shape) RAFT_STORE_ROW(G_FAB, FL_##name, dt, shape)
+RAFT_STATE_DIET(RAFT_STORE_STATE)
+RAFT_CFG_DIET(RAFT_STORE_CFG)
+RAFT_FABRIC_DIET(RAFT_STORE_FAB)
+#undef RAFT_STORE_ROW
+#undef RAFT_STORE_STATE
+#undef RAFT_STORE_CFG
+#undef RAFT_STORE_FAB
+#endif
 
 // The state leaves the round never reads or writes (fused.py leaves them
 // to the host): a lane's row goes from the input straight to the output,
@@ -484,6 +598,9 @@ struct RowIO {
   static constexpr int kBytes = X * (int)sizeof(T);
   static constexpr int U = kBytes % 16 == 0 ? 16 : kBytes % 8 == 0 ? 8 : kBytes % 4 == 0 ? 4 : 0;
   static constexpr int PER = U / (int)sizeof(T);  // elements per access
+  static constexpr int EW = 4 / (int)sizeof(T);   // elements per 32-bit word
+  static constexpr int kBits = 8 * (int)sizeof(T);
+  static constexpr uint32_t kMask = sizeof(T) == 4 ? 0xffffffffu : (1u << kBits) - 1u;
 
   static RAFT_HD void load(const T *row, T (&e)[X]) {
     if constexpr (U == 0) {
@@ -494,8 +611,7 @@ struct RowIO {
       for (int a = 0; a < kBytes / U; ++a) {
         const Bits<U> b = ((const Bits<U> *)row)[a];
         RAFT_UNROLL
-        for (int q = 0; q < PER; ++q)
-          e[a * PER + q] = sizeof(T) == 4 ? (T)b.w[q] : (T)(b.w[q / 4] >> (8 * (q % 4)));
+        for (int q = 0; q < PER; ++q) e[a * PER + q] = (T)(b.w[q / EW] >> (kBits * (q % EW)));
       }
     }
   }
@@ -511,31 +627,30 @@ struct RowIO {
         RAFT_UNROLL
         for (int w = 0; w < U / 4; ++w) b.w[w] = 0;
         RAFT_UNROLL
-        for (int q = 0; q < PER; ++q) {
-          const uint32_t x = sizeof(T) == 4 ? (uint32_t)e[a * PER + q]
-                                            : (uint32_t)(uint8_t)e[a * PER + q] << (8 * (q % 4));
-          b.w[sizeof(T) == 4 ? q : q / 4] |= x;
-        }
+        for (int q = 0; q < PER; ++q)
+          b.w[q / EW] |= ((uint32_t)e[a * PER + q] & kMask) << (kBits * (q % EW));
         ((Bits<U> *)row)[a] = b;
       }
     }
   }
 };
 
-// lane i's row <-> its column (element e at col[e * s])
-template <typename T, int X>
-RAFT_HD void row_to_col(const T *g, long long i, T *col, int s) {
+// lane i's row of T (device memory) <-> its column of C (element e at
+// col[e * s]); a diet build's rows are narrower than their columns, whose
+// values the boundary has already clamped to the row's range
+template <typename T, int X, typename C>
+RAFT_HD void row_to_col(const T *g, long long i, C *col, int s) {
   T e[X];
   RowIO<T, X>::load(g + i * X, e);
   RAFT_UNROLL
-  for (int q = 0; q < X; ++q) col[q * s] = e[q];
+  for (int q = 0; q < X; ++q) col[q * s] = (C)e[q];
 }
 
-template <typename T, int X>
-RAFT_HD void col_to_row(T *g, long long i, const T *col, int s) {
+template <typename T, int X, typename C>
+RAFT_HD void col_to_row(T *g, long long i, const C *col, int s) {
   T e[X];
   RAFT_UNROLL
-  for (int q = 0; q < X; ++q) e[q] = col[q * s];
+  for (int q = 0; q < X; ++q) e[q] = (T)col[q * s];
   RowIO<T, X>::store(g + i * X, e);
 }
 
@@ -543,11 +658,12 @@ RAFT_HD void col_to_row(T *g, long long i, const T *col, int s) {
 // buffer 0, or out from buffer b to the output fabric
 template <int K, typename ST, int KIND>
 RAFT_HD void fab_row(const Args &a, const Block &B, long long i, int t, int b, bool in) {
+  using T = typename Store<G_FAB, K, ST>::T;
   ST *col = fab_col<K, ST>(B, in ? 0 : b) + t;
   if (in)
-    row_to_col<ST, elems(KIND)>((const ST *)a.p[P_FAB_IN + K], i, col, B.sf);
+    row_to_col<T, elems(KIND)>((const T *)a.p[P_FAB_IN + K], i, col, B.sf);
   else
-    col_to_row<ST, elems(KIND)>((ST *)a.p[P_FAB_OUT + K], i, col, B.sf);
+    col_to_row<T, elems(KIND)>((T *)a.p[P_FAB_OUT + K], i, col, B.sf);
 }
 
 RAFT_HD void fab_rows(const Args &a, const Block &B, long long i, int t, int b, bool in) {
@@ -648,88 +764,221 @@ RAFT_HD Fab inbox(const Block &B, int b, int t) {
 // ---------------------------------------------------------------------------
 // per-thread leaf I/O, by member type: LANE scalars and PEER rows between
 // device memory and registers, the rings' rows between device memory and
-// their columns (the views bound at load)
+// their columns (the views bound at load). A diet build's row may be
+// narrower (T, widened at load and narrowed at store: the boundary below
+// has clamped every value to T's range) or a bitset: a PEER bool row
+// stored as one word per lane, ro_acks' [R][V] as one word per slot.
+
+// bit j set where x[j]
+RAFT_HD uint32_t bits(const bool (&x)[V]) {
+  uint32_t m = 0;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) m |= uint32_t(x[j]) << j;
+  return m;
+}
+
+// state leaf K (slim storage ST) as device memory holds it
+template <int K, typename ST>
+struct StateLeaf {
+  using S = Store<G_STATE, K, ST>;
+  using T = typename S::T;
+  static constexpr int kind = S::kind < 0 ? state_kind(K) : S::kind;
+  static constexpr int X = elems(kind);  // elements of the lane's row
+  static constexpr bool bits = kind != state_kind(K);
+  static constexpr bool narrow = S::kind >= 0 && !bits && !through(K);
+};
 
 // a through leaf's row, input to output
-template <int K, typename ST, int X>
+template <int K, typename T, int X>
 RAFT_HD void pass_row(const Args &a, long long i) {
-  ST e[X];
-  RowIO<ST, X>::load((const ST *)a.p[P_STATE_IN + K] + i * X, e);
-  RowIO<ST, X>::store((ST *)a.p[P_STATE_OUT + K] + i * X, e);
+  T e[X];
+  RowIO<T, X>::load((const T *)a.p[P_STATE_IN + K] + i * X, e);
+  RowIO<T, X>::store((T *)a.p[P_STATE_OUT + K] + i * X, e);
 }
 
 template <int K, typename ST, typename CT>
 RAFT_HD void load_leaf(CT &x, const Args &a, const Block &, long long i, int) {
+  using L = StateLeaf<K, ST>;
   if constexpr (through(K))
-    pass_row<K, ST, 1>(a, i);
+    pass_row<K, typename L::T, L::X>(a, i);
   else
-    x = (CT)((const ST *)a.p[P_STATE_IN + K])[i];
+    x = (CT)((const typename L::T *)a.p[P_STATE_IN + K])[i];
 }
 template <int K, typename ST, typename CT>
 RAFT_HD void load_leaf(CT (&x)[V], const Args &a, const Block &, long long i, int) {
+  using L = StateLeaf<K, ST>;
+  using T = typename L::T;
   if constexpr (through(K)) {
-    pass_row<K, ST, V>(a, i);
+    pass_row<K, T, L::X>(a, i);
+  } else if constexpr (L::bits) {
+    const uint32_t w = ((const T *)a.p[P_STATE_IN + K])[i];
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) x[j] = (CT)((w >> j) & 1u);
   } else {
-    ST e[V];
-    RowIO<ST, V>::load((const ST *)a.p[P_STATE_IN + K] + i * V, e);
+    T e[V];
+    RowIO<T, V>::load((const T *)a.p[P_STATE_IN + K] + i * V, e);
     RAFT_UNROLL
     for (int j = 0; j < V; ++j) x[j] = (CT)e[j];
   }
 }
 template <int K, typename ST>
 RAFT_HD void load_leaf(Col<ST> &x, const Args &a, const Block &B, long long i, int t) {
-  constexpr int X = elems(state_kind(K));
+  using L = StateLeaf<K, ST>;
+  using T = typename L::T;
   if constexpr (through(K)) {
-    pass_row<K, ST, X>(a, i);
+    pass_row<K, T, L::X>(a, i);
   } else {
     x = Col<ST>{ring_col<K, ST>(B) + t, B.sr};
-    row_to_col<ST, X>((const ST *)a.p[P_STATE_IN + K], i, x.p, B.sr);
+    row_to_col<T, L::X>((const T *)a.p[P_STATE_IN + K], i, x.p, B.sr);
   }
 }
 template <int K, typename ST>
 RAFT_HD void load_leaf(Col2<ST> &x, const Args &a, const Block &B, long long i, int t) {
+  using L = StateLeaf<K, ST>;
+  using T = typename L::T;
   constexpr int inner = state_kind(K) == K_INFL ? F : V;
   x = Col2<ST>{ring_col<K, ST>(B) + t, inner * B.sr, B.sr};
-  row_to_col<ST, elems(state_kind(K))>((const ST *)a.p[P_STATE_IN + K], i, x.p, B.sr);
+  if constexpr (L::bits) {  // ro_acks: [R] words -> [R][V] bools
+    T e[R];
+    RowIO<T, R>::load((const T *)a.p[P_STATE_IN + K] + i * R, e);
+    RAFT_UNROLL
+    for (int r = 0; r < R; ++r) {
+      RAFT_UNROLL
+      for (int j = 0; j < V; ++j) x[r][j] = (ST)((e[r] >> j) & 1u);
+    }
+  } else {
+    row_to_col<T, L::X>((const T *)a.p[P_STATE_IN + K], i, x.p, B.sr);
+  }
 }
 
 template <int K, typename ST, typename CT>
 RAFT_HD void store_leaf(const CT &x, const Args &a, long long i) {
-  if constexpr (!through(K)) ((ST *)a.p[P_STATE_OUT + K])[i] = (ST)x;
+  using T = typename StateLeaf<K, ST>::T;
+  if constexpr (!through(K)) ((T *)a.p[P_STATE_OUT + K])[i] = (T)x;
 }
 template <int K, typename ST, typename CT>
 RAFT_HD void store_leaf(const CT (&x)[V], const Args &a, long long i) {
-  if constexpr (!through(K)) {
-    ST e[V];
+  using L = StateLeaf<K, ST>;
+  using T = typename L::T;
+  if constexpr (through(K)) return;
+  if constexpr (L::bits) {
+    ((T *)a.p[P_STATE_OUT + K])[i] = (T)bits(x);
+  } else {
+    T e[V];
     RAFT_UNROLL
-    for (int j = 0; j < V; ++j) e[j] = (ST)x[j];
-    RowIO<ST, V>::store((ST *)a.p[P_STATE_OUT + K] + i * V, e);
+    for (int j = 0; j < V; ++j) e[j] = (T)x[j];
+    RowIO<T, V>::store((T *)a.p[P_STATE_OUT + K] + i * V, e);
   }
 }
 template <int K, typename ST>
 RAFT_HD void store_leaf(const Col<ST> &x, const Args &a, long long i) {
+  using L = StateLeaf<K, ST>;
   if constexpr (!through(K))
-    col_to_row<ST, elems(state_kind(K))>((ST *)a.p[P_STATE_OUT + K], i, x.p, x.s);
+    col_to_row<typename L::T, L::X>((typename L::T *)a.p[P_STATE_OUT + K], i, x.p, x.s);
 }
 template <int K, typename ST>
 RAFT_HD void store_leaf(const Col2<ST> &x, const Args &a, long long i) {
-  col_to_row<ST, elems(state_kind(K))>((ST *)a.p[P_STATE_OUT + K], i, x.p, x.si);
+  using L = StateLeaf<K, ST>;
+  using T = typename L::T;
+  if constexpr (L::bits) {  // ro_acks: [R][V] bools -> [R] words
+    T e[R];
+    RAFT_UNROLL
+    for (int r = 0; r < R; ++r) {
+      uint32_t w = 0;
+      RAFT_UNROLL
+      for (int j = 0; j < V; ++j) w |= uint32_t(x[r][j] != 0) << j;
+      e[r] = (T)w;
+    }
+    RowIO<T, R>::store((T *)a.p[P_STATE_OUT + K] + i * R, e);
+  } else {
+    col_to_row<T, L::X>((T *)a.p[P_STATE_OUT + K], i, x.p, x.si);
+  }
 }
 
-// the narrow->widen round trip of a register leaf between rounds
-template <typename ST, typename CT>
-RAFT_HD void roundtrip(CT &x) {
+// The carry between rounds. The slim build replays the slim casts
+// (slim_state then fat_state). A diet build replays store_carry then
+// load_carry (ops/fused.py): the same casts, then every value that packs
+// narrower (the lane's registers, its ring columns and its outbox cells)
+// clamped to its packed range, with ERR_DIET_OVERFLOW set on the lane
+// where one moved. Bitsets hold any bool, and error_bits is never packed.
+
+template <typename T>
+struct Range;  // the inclusive value range of a packed dtype (state.py _DIET_RANGE)
+template <>
+struct Range<uint16_t> {
+  static constexpr int lo = 0, hi = 65535;
+};
+template <>
+struct Range<int16_t> {
+  static constexpr int lo = -32768, hi = 32767;
+};
+template <>
+struct Range<int8_t> {
+  static constexpr int lo = -128, hi = 127;
+};
+
+template <typename T, typename C>
+RAFT_HD void clamp_to(C &x, bool &ovf) {
+  if (x < Range<T>::lo || x > Range<T>::hi) {
+    ovf = true;
+    x = x < Range<T>::lo ? Range<T>::lo : Range<T>::hi;
+  }
+}
+
+template <int K, typename ST, typename CT>
+RAFT_HD void roundtrip(CT &x, bool &ovf) {
   x = (CT)(ST)x;
+  if constexpr (StateLeaf<K, ST>::narrow) clamp_to<typename StateLeaf<K, ST>::T>(x, ovf);
 }
-template <typename ST, typename CT>
-RAFT_HD void roundtrip(CT (&x)[V]) {
+template <int K, typename ST, typename CT>
+RAFT_HD void roundtrip(CT (&x)[V], bool &ovf) {
   RAFT_UNROLL
-  for (int j = 0; j < V; ++j) x[j] = (CT)(ST)x[j];
+  for (int j = 0; j < V; ++j) {
+    x[j] = (CT)(ST)x[j];
+    if constexpr (StateLeaf<K, ST>::narrow) clamp_to<typename StateLeaf<K, ST>::T>(x[j], ovf);
+  }
 }
-template <typename ST, typename T>
-RAFT_HD void roundtrip(Col<T> &) {}
-template <typename ST, typename T>
-RAFT_HD void roundtrip(Col2<T> &) {}
+template <int K, typename ST>
+RAFT_HD void roundtrip(Col<ST> &x, bool &ovf) {
+  if constexpr (StateLeaf<K, ST>::narrow) {
+    RAFT_UNROLL
+    for (int e = 0; e < elems(state_kind(K)); ++e)
+      clamp_to<typename StateLeaf<K, ST>::T>(x[e], ovf);
+  }
+}
+template <int K, typename ST>
+RAFT_HD void roundtrip(Col2<ST> &x, bool &ovf) {
+  if constexpr (StateLeaf<K, ST>::narrow) {
+    constexpr int inner = state_kind(K) == K_INFL ? F : V;
+    RAFT_UNROLL
+    for (int o = 0; o < elems(state_kind(K)) / inner; ++o) {
+      RAFT_UNROLL
+      for (int e = 0; e < inner; ++e) clamp_to<typename StateLeaf<K, ST>::T>(x[o][e], ovf);
+    }
+  }
+}
+
+// the lane's outbox cells of fabric leaf K (fabric_diet_overflow, then
+// pack_fabric's clamp)
+template <int K, typename ST, int KIND>
+RAFT_HD void clamp_cells(const Col<ST> &x, bool &ovf) {
+  using S = Store<G_FAB, K, ST>;
+  if constexpr (S::kind >= 0) {
+    RAFT_UNROLL
+    for (int j = 0; j < (KIND == K_LANE ? 1 : V); ++j) clamp_to<typename S::T>(x[j], ovf);
+  }
+}
+template <int K, typename ST, int KIND>
+RAFT_HD void clamp_cells(const Col2<ST> &x, bool &ovf) {
+  using S = Store<G_FAB, K, ST>;
+  if constexpr (S::kind >= 0) {
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) {
+      RAFT_UNROLL
+      for (int k = 0; k < E; ++k) clamp_to<typename S::T>(x[j][k], ovf);
+    }
+  }
+}
 
 RAFT_HD void load_lane(Lane &L, const Args &a, const Block &B, long long i, int t) {
 #define RAFT_LOAD(name, dt, shape) load_leaf<SL_##name, RAFT_ST_##dt>(L.name, a, B, i, t);
@@ -743,33 +992,32 @@ RAFT_HD void store_lane(const Lane &L, const Args &a, long long i) {
 #undef RAFT_STORE
 }
 
-RAFT_HD void roundtrip_lane(Lane &L) {
-#define RAFT_RT(name, dt, shape) roundtrip<RAFT_ST_##dt>(L.name);
+// the lane's carry and its outbox `out` after a round
+RAFT_HD void roundtrip_lane(Lane &L, const Fab &out) {
+  bool ovf = false;
+#define RAFT_RT(name, dt, shape) roundtrip<SL_##name, RAFT_ST_##dt>(L.name, ovf);
   RAFT_STATE_FIELDS(RAFT_RT)
 #undef RAFT_RT
+#define RAFT_CLAMP(name, dt, shape) clamp_cells<FL_##name, RAFT_ST_##dt, K_##shape>(out.name, ovf);
+  RAFT_FABRIC_FIELDS(RAFT_CLAMP)
+#undef RAFT_CLAMP
+  if (ovf) L.error_bits |= ERR_DIET_OVERFLOW;
 }
 
-#define RAFT_LOAD_LANE_LEAF(name, dt, shape) \
-  obj.name = (RAFT_CT_##dt)((const RAFT_ST_##dt *)a.p[k++])[i];
-
 RAFT_HD void load_cfg(Cfg &obj, const Args &a, long long i) {
-  int k = P_CFG;
-  RAFT_CFG_FIELDS(RAFT_LOAD_LANE_LEAF)
+#define RAFT_LOAD_CFG(name, dt, shape)                                                   \
+  obj.name = (RAFT_CT_##dt)(                                                             \
+      (const typename Store<G_CFG, CL_##name, RAFT_ST_##dt>::T *)a.p[P_CFG + CL_##name])[i];
+  RAFT_CFG_FIELDS(RAFT_LOAD_CFG)
+#undef RAFT_LOAD_CFG
 }
 
 RAFT_HD void load_ops(Ops &obj, const Args &a, long long i) {
   int k = P_OPS;
-  RAFT_OPS_FIELDS(RAFT_LOAD_LANE_LEAF)
-}
-
-#undef RAFT_LOAD_LANE_LEAF
-
-// bit j set where x[j]
-RAFT_HD uint32_t bits(const bool (&x)[V]) {
-  uint32_t m = 0;
-  RAFT_UNROLL
-  for (int j = 0; j < V; ++j) m |= uint32_t(x[j]) << j;
-  return m;
+#define RAFT_LOAD_OPS(name, dt, shape) \
+  obj.name = (RAFT_CT_##dt)((const RAFT_ST_##dt *)a.p[k++])[i];
+  RAFT_OPS_FIELDS(RAFT_LOAD_OPS)
+#undef RAFT_LOAD_OPS
 }
 
 RAFT_HD constexpr int imin(int a, int b) { return a < b ? a : b; }
@@ -2110,8 +2358,8 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
     clear_ops(ops);
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev);
-  // the carry crosses the slim dtypes between rounds (slim_state/fat_state)
-  roundtrip_lane(th.L);
+  // the carry crosses the storage boundary between rounds
+  roundtrip_lane(th.L, out);
 }
 
 // after the rounds: lane i's carry, its last outbox (fabric buffer b) and
@@ -2319,3 +2567,6 @@ extern "C" void raft_round_shape(long long *out) {
 }
 
 extern "C" long long raft_round_smem() { return raft::Block::bytes; }
+
+// 1 for the diet-v2 build (the packed carry in device memory), else 0.
+extern "C" int raft_round_diet() { return RAFT_DIET; }

@@ -8,6 +8,8 @@ the leaves of a `raft_tpu` carry build the matching `raft_tpu_torch`
 object, and one sha256 over the leaves (`digest`) compares the two. `None`
 fields hold no leaf, exactly as `jax.tree.leaves` skips them.
 
+Leaves keep their dtypes both ways, so a diet-v2 packed carry (uint16,
+int16 and int8 columns, uint8/16/32 bitset words) comes across packed.
 This module imports no JAX: the caller turns JAX arrays into numpy.
 """
 
@@ -96,10 +98,13 @@ def _defaults(cls) -> dict:
 
 
 def digest(*leaf_lists) -> str:
-    """sha256 over the bytes of every leaf, in order — the digest of
-    tests/test_pallas_round.py, applied to lists of numpy leaves."""
+    """sha256 over every leaf in order: its dtype and shape, then its bytes
+    (so a packed uint16 column never digests like the int16 bytes it
+    shares), applied to lists of numpy leaves."""
     h = hashlib.sha256()
     for leaves in leaf_lists:
         for leaf in leaves:
-            h.update(np.ascontiguousarray(leaf).tobytes())
+            x = np.ascontiguousarray(leaf)
+            h.update(f"{x.dtype.str}{x.shape}".encode())
+            h.update(x.tobytes())
     return h.hexdigest()

@@ -15,8 +15,10 @@ commit-index reduction through the hand-written CUDA kernel on the card
 (ops/quorum.py joint_committed -> csrc/quorum.cu joint_kernel). The carry is
 updated functionally (new tensors each round); nothing is written in place.
 
-Of the JAX round's optional planes only metrics is ported; chaos, diet,
-paged, lease, trace, tier, straddle and fused_ids are not (ROADMAP).
+Of the JAX round's optional planes metrics and the diet-v2 packed carry
+(`diet=True`: state.pack_state / pack_fabric between dispatches, and
+store_carry / load_carry around every round) are ported; chaos, paged,
+lease, trace, tier, straddle and fused_ids are not (ROADMAP).
 """
 
 from __future__ import annotations
@@ -37,11 +39,16 @@ from raft_tpu_torch.ops import progress as pg
 from raft_tpu_torch.ops import quorum as qr
 from raft_tpu_torch.ops import step as stepmod
 from raft_tpu_torch.state import (
+    _DIET_RANGE,
+    ERR_DIET_OVERFLOW,
     RaftState,
     fat_state,
     init_state,
+    is_packed,
     make_lane_config,
+    pack_state,
     slim_state,
+    unpack_state,
 )
 from raft_tpu_torch.types import (
     CampaignType,
@@ -59,7 +66,7 @@ NONE = int(MT.MSG_NONE)
 
 # Planes of the JAX round that this package does not have yet.
 PLANES_NOT_PORTED = (
-    "chaos", "diet", "paged", "lease", "trace", "tier", "straddle", "fused_ids",
+    "chaos", "paged", "lease", "trace", "tier", "straddle", "fused_ids",
 )
 
 
@@ -197,6 +204,124 @@ def slim_fabric(fab: Fabric) -> Fabric:
 
 def fat_fabric(fab: Fabric) -> Fabric:
     return _cast_fabric(fab, widen=True)
+
+
+# Diet-v2 fabric (fused.FABRIC_PACK, the wire-side twin of state.pack_state):
+# every bounded term/index/commit column of an in-flight message narrows to
+# uint16 (messages carry values from the sender's rebased state) and entry
+# payload sizes to int16. The host-ticket columns (hb.context,
+# vote.context) stay int32. Empty slots are zeros, so packing every cell
+# whatever its kind is exact.
+FABRIC_PACK = {
+    ("rep", "term"): torch.uint16,
+    ("rep", "index"): torch.uint16,
+    ("rep", "log_term"): torch.uint16,
+    ("rep", "commit"): torch.uint16,
+    ("rep", "reject_hint"): torch.uint16,
+    ("rep", "snap_index"): torch.uint16,
+    ("rep", "snap_term"): torch.uint16,
+    ("rep", "ent_term"): torch.uint16,
+    ("rep", "ent_bytes"): torch.int16,
+    ("hb", "term"): torch.uint16,
+    ("hb", "commit"): torch.uint16,
+    ("vote", "term"): torch.uint16,
+    ("vote", "index"): torch.uint16,
+    ("vote", "log_term"): torch.uint16,
+    ("vresp", "term"): torch.uint16,
+    ("self_", "term"): torch.uint16,
+    ("self_", "index"): torch.uint16,
+}
+
+
+def is_packed_fabric(fab: Fabric) -> bool:
+    """The diet-v2 fabric layout (its replication index is uint16)."""
+    return fab.rep.index.dtype == torch.uint16
+
+
+def fabric_diet_overflow(fab: Fabric):
+    """[N] bool: a cell of this lane's outbox row outside its diet-v2
+    range. store_carry folds it into state.error_bits (the fabric has no
+    error column of its own)."""
+    n = fab.self_.kind.shape[0]
+    ovf = torch.zeros((n,), dtype=BOOL, device=fab.self_.kind.device)
+    if is_packed_fabric(fab):
+        return ovf
+    for (chan_name, field), dt in FABRIC_PACK.items():
+        x = getattr(getattr(fab, chan_name), field)
+        lo, hi = _DIET_RANGE[dt]
+        bad = (x < lo) | (x > hi)
+        if bad.dim() > 1:
+            bad = bad.flatten(1).any(dim=1)
+        ovf = ovf | bad
+    return ovf
+
+
+def _cast_fabric_map(fab: Fabric, table, widen: bool, clamp: bool) -> Fabric:
+    for (chan_name, field), dt in table.items():
+        chan = getattr(fab, chan_name)
+        x = getattr(chan, field)
+        target = I32 if widen else dt
+        if x.dtype != target:
+            if clamp and not widen:
+                lo, hi = _DIET_RANGE[dt]
+                x = torch.clamp(x, lo, hi)
+            chan = dataclasses.replace(chan, **{field: x.to(target)})
+            fab = dataclasses.replace(fab, **{chan_name: chan})
+    return fab
+
+
+def pack_fabric(fab: Fabric) -> Fabric:
+    """Slim/fat -> diet-v2 packed fabric (idempotent). Out-of-range cells
+    clamp; store_carry folds fabric_diet_overflow into error_bits first,
+    so a clamp is never silent."""
+    if is_packed_fabric(fab):
+        return fab
+    return _cast_fabric_map(slim_fabric(fab), FABRIC_PACK, widen=False, clamp=True)
+
+
+def unpack_fabric(fab: Fabric) -> Fabric:
+    """Diet-v2 packed -> the exact slim fabric (idempotent)."""
+    if not is_packed_fabric(fab):
+        return fab
+    return _cast_fabric_map(fab, FABRIC_PACK, widen=True, clamp=False)
+
+
+def store_carry(state: RaftState, fab: Fabric):
+    """The diet-v2 store boundary of a (state, fabric) carry: fold the
+    fabric's overflow into state.error_bits, then pack both. Every engine
+    crosses this one boundary between rounds (csrc/round.cu replays it in
+    its diet build). A carry already packed passes as it is: its values
+    are in range by their dtypes, so the fold and the packs are the
+    identity, and skipping them saves the card four launches a dispatch."""
+    if is_packed(state) and is_packed_fabric(fab):
+        return state, fab
+    ovf = fabric_diet_overflow(fab)
+    state = dataclasses.replace(
+        state, error_bits=state.error_bits | torch.where(ovf, ERR_DIET_OVERFLOW, 0).to(I32)
+    )
+    return pack_state(state), pack_fabric(fab)
+
+
+def load_carry(state: RaftState, fab: Fabric):
+    """The diet-v2 load boundary: packed (state, fabric) -> the int32
+    compute view."""
+    return fat_state(unpack_state(state)), fat_fabric(unpack_fabric(fab))
+
+
+def _fat_carry(state: RaftState, fab: Fabric):
+    return fat_state(state), fat_fabric(fab)
+
+
+def _slim_carry(state: RaftState, fab: Fabric):
+    return slim_state(state), slim_fabric(fab)
+
+
+def carry_boundary(state: RaftState):
+    """(load, store): the storage boundary a carry crosses around every
+    round, the diet-v2 pair for a packed carry (state.is_packed), else the
+    slim casts. Both engines cross it, and store also brings a carry into
+    its storage layout on entry."""
+    return (load_carry, store_carry) if is_packed(state) else (_fat_carry, _slim_carry)
 
 
 def aligned_peer_mute(mute, v: int):
@@ -1034,6 +1159,34 @@ def _bytes_between(state: RaftState, lo, hi):
     return torch.where(m, state.log_bytes, 0).sum(dim=1, dtype=I32)
 
 
+def rebase_fabric(fab: Fabric, delta) -> Fabric:
+    """Shift the index columns of in-flight messages down by `delta` [N]
+    (per source lane; a group rebases as a whole and delivery never leaves
+    the group, so source deltas are destination deltas), floored at 0, on
+    live cells only (fused._rebase_fabric). Takes and returns an int32
+    fabric."""
+    d = delta[:, None]
+
+    def shift(x, live, dd=d):
+        return torch.where(live, torch.clamp(x - dd, min=0), x)
+
+    rep = fab.rep
+    rep_live = rep.kind != NONE
+    rep = dataclasses.replace(
+        rep,
+        index=shift(rep.index, rep_live),
+        commit=shift(rep.commit, rep_live),
+        reject_hint=shift(rep.reject_hint, rep_live),
+        snap_index=shift(rep.snap_index, rep_live & (rep.snap_index > 0)),
+    )
+    hb = dataclasses.replace(fab.hb, commit=shift(fab.hb.commit, fab.hb.kind != NONE))
+    vote = dataclasses.replace(fab.vote, index=shift(fab.vote.index, fab.vote.kind != NONE))
+    self_ = dataclasses.replace(
+        fab.self_, index=shift(fab.self_.index, fab.self_.kind != NONE, delta)
+    )
+    return dataclasses.replace(fab, rep=rep, hb=hb, vote=vote, self_=self_)
+
+
 # --------------------------------------------------------------------------
 # running rounds
 
@@ -1055,11 +1208,12 @@ def fused_rounds(
     """n_rounds fused rounds (raft_tpu/ops/fused.py fused_rounds without the
     straddle, chaos, trace and paged planes). `ops` applies to the first
     round only unless ops_first_round_only=False. The carry enters and
-    leaves in the slim storage dtypes; each round widens to int32, routes,
-    computes and narrows back. Returns (state, fab) or (state, fab,
-    metrics)."""
-    state = slim_state(state)
-    fab = slim_fabric(fab)
+    leaves in the slim storage dtypes, or packed when it comes packed
+    (state.is_packed); each round widens to int32, routes, computes and
+    narrows back across the same boundary (store_carry / load_carry when
+    packed). Returns (state, fab) or (state, fab, metrics)."""
+    load, store = carry_boundary(state)
+    state, fab = store(state, fab)
     peer_mute = aligned_peer_mute(mute, v) if mute is not None else None
     zero_ops = None
     for i in range(n_rounds):
@@ -1068,9 +1222,10 @@ def fused_rounds(
             if zero_ops is None:
                 zero_ops = LocalOps(*(torch.zeros_like(x) for x in ops))
             o = zero_ops
-        inb = route_fabric(fat_fabric(fab), v, mute, peer_mute=peer_mute)
+        st_fat, fb_fat = load(state, fab)
+        inb = route_fabric(fb_fat, v, mute, peer_mute=peer_mute)
         res = fused_round(
-            fat_state(state),
+            st_fat,
             inb,
             o,
             mute,
@@ -1080,7 +1235,7 @@ def fused_rounds(
             auto_compact_lag=auto_compact_lag,
             metrics=metrics,
         )
-        state, fab = slim_state(res[0]), slim_fabric(res[1])
+        state, fab = store(res[0], res[1])
         if metrics is not None:
             metrics = res[2]
     # the JAX package leaves the same canonical zeros-outside-window layout
@@ -1096,8 +1251,11 @@ class FusedCluster:
     passes another `device` (`device="cpu"` runs the plain PyTorch path).
 
     metrics: keep the device metrics plane (on by default, as in the JAX
-    package). engine: "xla" (default: the eager round of this module) or
-    "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
+    package). diet: keep the carry in the diet-v2 packed layout between
+    dispatches (state.pack_state / pack_fabric; off by default, as
+    RAFT_TPU_DIET is in the JAX package), with the automatic rebase that
+    keeps its uint16 index columns under DIET_REBASE_AT. engine: "xla"
+    (default: the eager round of this module) or "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
     kernel; tile_lanes, default pallas_round.default_tile, and
     rounds_per_call K, default 1, are checked here and raise TileError /
     ValueError). **cfg: LaneConfig overrides (election_tick, pre_vote, ...)."""
@@ -1112,6 +1270,7 @@ class FusedCluster:
         *,
         device=None,
         metrics: bool = True,
+        diet: bool = False,
         engine: str | None = None,
         tile_lanes: int | None = None,
         rounds_per_call: int | None = None,
@@ -1150,6 +1309,15 @@ class FusedCluster:
         self.fab = slim_fabric(
             empty_fabric(n, n_voters, self.shape.max_msg_entries, self.device)
         )
+        # diet-v2: the resident carry packs down to bitset masks and uint16
+        # rebased indexes, and every round widens it on the device.
+        # _diet_budget is the host-side headroom counter of the automatic
+        # rebase (_diet_headroom); 0 forces a device read on the next run.
+        self._diet = bool(diet)
+        self._diet_budget = 0
+        if self._diet:
+            self.state = pack_state(self.state)
+            self.fab = pack_fabric(self.fab)
         self.mute = torch.zeros((n,), dtype=BOOL, device=self.device)
         self._no_ops = no_ops(n, self.device)
         self.metrics = metmod.init_metrics(n, self.device) if metrics else None
@@ -1171,6 +1339,8 @@ class FusedCluster:
         auto_compact_lag: int | None = None,
         ops_first_round_only: bool = True,
     ):
+        if self._diet:  # may rebase the carry and the metrics' samples
+            self._diet_headroom(rounds)
         kw = dict(
             v=self.v,
             n_rounds=rounds,
@@ -1218,6 +1388,98 @@ class FusedCluster:
         plr.validate_round_plan(k)
         return k
 
+    # -- index-space rebase and the diet-v2 automatic rebase ---------------
+
+    def rebase_groups(self, groups, delta: int | None = None) -> dict:
+        """Re-key the index space of whole groups down by a window-aligned
+        delta (their smallest snap_index rounded down to W, or `delta`)
+        while traffic is live: state and in-flight fabric shift together
+        between dispatches. Returns {group: delta}. Negative deltas are
+        allowed (tests fast-forward a batch toward an overflow guard)."""
+        w = self.shape.w
+        n = self.g * self.v
+        snap = self.state.snap_index.cpu().numpy().astype(np.int64)
+        deltas = np.zeros((n,), np.int32)
+        mask = np.zeros((n,), bool)
+        out = {}
+        for g in groups:
+            sl = slice(g * self.v, (g + 1) * self.v)
+            d = delta if delta is not None else (int(snap[sl].min()) // w) * w
+            if d == 0:
+                continue
+            if d % w:
+                raise ValueError("rebase delta must be window-aligned")
+            deltas[sl] = d
+            mask[sl] = True
+            out[g] = d
+        if out:
+            self._apply_rebase(mask, deltas)
+        return out
+
+    def _apply_rebase(self, mask, deltas):
+        """Shift the carry's index space (ops/log.py rebase_indexes and
+        rebase_fabric) and the metrics plane's latency samples for the
+        masked lanes. The shift runs on the int32 view: x - d floored at 0
+        on a packed uint16 column would wrap first, so a packed carry is
+        unpacked around it and packed again."""
+        mj = torch.as_tensor(mask, device=self.device)
+        dj = torch.as_tensor(deltas, device=self.device)
+        st = slim_state(lg.rebase_indexes(unpack_state(self.state), mj, dj))
+        fb = slim_fabric(rebase_fabric(fat_fabric(unpack_fabric(self.fab)), dj))
+        if is_packed(self.state):
+            st, fb = pack_state(st), pack_fabric(fb)
+        self.state, self.fab = st, fb
+        # the index space moved under the headroom counter: re-read it
+        self._diet_budget = 0
+        if self.metrics is not None:
+            self.metrics = metmod.rebase_samples(self.metrics, mj, dj)
+
+    # Automatic-rebase threshold of the packed uint16 index columns: when
+    # the largest index a dispatch could reach would cross it, every group
+    # rebases down first. 48 Ki leaves 16 Ki under 2^16 (a whole
+    # MAX_LOG_WINDOW) and lies far above what a test or bench run reaches.
+    DIET_REBASE_AT = 48 * 1024
+
+    def _diet_headroom(self, rounds: int):
+        """Pre-dispatch overflow guard of the packed index columns. A
+        dispatch grows any index by at most rounds * (E + 1) (E appended
+        entries and one snapshot catch-up a round), so a host-side budget
+        is spent by that bound each run and max(last) is read off the
+        device only when the budget runs out."""
+        grow = rounds * (self.shape.max_msg_entries + 1)
+        if self._diet_budget > grow:
+            self._diet_budget -= grow
+            return
+        mx = int(self.state.last.to(I32).max())
+        if mx + grow >= self.DIET_REBASE_AT:
+            self._rebase_all_groups()
+            mx = int(self.state.last.to(I32).max())
+        self._diet_budget = max(self.DIET_REBASE_AT - mx - grow, 0)
+
+    def _rebase_all_groups(self):
+        """The whole batch rebased at once: each group by its smallest
+        snap_index rounded down to W, in one numpy pass."""
+        w = self.shape.w
+        snap = self.state.snap_index.cpu().numpy().astype(np.int64)
+        d_g = (snap.reshape(self.g, self.v).min(axis=1) // w) * w
+        deltas = np.repeat(d_g, self.v).astype(np.int32)
+        mask = deltas != 0
+        if mask.any():
+            self._apply_rebase(mask, deltas)
+
+    # -- host views of the carry ------------------------------------------
+
+    def host_state(self) -> RaftState:
+        """The carry as host readers see it: slim dtypes, absolute int32
+        index columns, [N, V] bool masks, whether or not it is packed
+        (self.state may be diet-v2 packed)."""
+        return unpack_state(self.state)
+
+    def adopt_state(self, st: RaftState):
+        """Install a host-built (slim or fat) state as the carry, packed
+        when the current carry is: the write-side twin of host_state."""
+        self.state = pack_state(st) if is_packed(self.state) else slim_state(st)
+
     def ops(self, **kw) -> LocalOps:
         """A LocalOps with the given per-lane columns set ({lane: value}
         dicts or full arrays)."""
@@ -1249,8 +1511,10 @@ class FusedCluster:
         return np.nonzero(self.state.state.cpu().numpy() == int(StateType.LEADER))[0]
 
     def state_columns(self, *names) -> dict:
-        """Host numpy copies of the named state columns."""
-        return {name: getattr(self.state, name).cpu().numpy() for name in names}
+        """Host numpy copies of the named state columns, read through
+        host_state (packed columns widen to absolute int32 / [N, V] bool)."""
+        st = self.host_state()
+        return {name: getattr(st, name).cpu().numpy() for name in names}
 
     def check_no_errors(self):
         bits = self.state.error_bits.cpu().numpy()

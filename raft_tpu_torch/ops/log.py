@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from raft_tpu_torch.ops import onehot as oh
-from raft_tpu_torch.state import RaftState
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW, RaftState  # noqa: F401
 
 I32 = torch.int32
 
@@ -29,6 +29,7 @@ ERR_APPEND_BELOW_COMMIT = 4  # reference log.go:135-137 panic
 ERR_WINDOW_OVERFLOW = 8  # no reference analog: device window capacity
 ERR_APPLIED_OUT_OF_RANGE = 16  # reference log.go:328-331 panic
 ERR_INDEX_NEAR_OVERFLOW = 32  # int32 indexes approaching 2^31
+# ERR_DIET_OVERFLOW = 64 (state.py): a value clamped at the diet-v2 boundary
 INDEX_OVERFLOW_MARGIN = 1 << 30
 _BIG = 2**31 - 1
 
@@ -36,7 +37,8 @@ _BIG = 2**31 - 1
 def scrub_stale_slots(state: RaftState) -> RaftState:
     """Zero every log slot outside the live window (idx <= snap_index), the
     canonical layout both packages leave at the end of a dispatch. Works on
-    slim columns (mask math in int32, column dtypes kept)."""
+    slim and diet-v2 packed columns (mask math in int32, column dtypes
+    kept)."""
     n, w = state.log_term.shape
     s = oh.iota(w, state.log_term.device)
     last = state.last.to(I32)[:, None]
@@ -44,7 +46,11 @@ def scrub_stale_slots(state: RaftState) -> RaftState:
     stale = idx <= state.snap_index.to(I32)[:, None]
 
     def z(col):
-        return torch.where(stale, torch.zeros((), dtype=col.dtype, device=col.device), col)
+        # torch.where takes no uint16 on the card: select on the same bits
+        # as int16 (zero is zero in both)
+        bits = torch.int16 if col.dtype == torch.uint16 else col.dtype
+        zero = torch.zeros((), dtype=bits, device=col.device)
+        return torch.where(stale, zero, col.view(bits)).view(col.dtype)
 
     return dataclasses.replace(
         state,

@@ -24,9 +24,14 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   delta); the rows are summed outside the kernel. int32 wrap-add is
   associative, so the sum equals the eager round's, exactly.
 
-Not carried over from the JAX engine: the chaos, trace, paged and diet
-planes (they raise NotImplementedError at FusedCluster construction, as
-on the eager path), the Mosaic (tile, K) autotune sweep, interpret mode,
+- Diet-v2: a packed carry (state.is_packed) enters, crosses every
+  boundary between in-kernel rounds and leaves packed, through the
+  fused.store_carry / load_carry pair the eager engine crosses; on the
+  card it runs the kernel's diet build (round_cuda.target(diet=True)).
+
+Not carried over from the JAX engine: the chaos, trace and paged planes
+(they raise NotImplementedError at FusedCluster construction, as on the
+eager path), the Mosaic (tile, K) autotune sweep, interpret mode,
 and the engine fallback: a build or launch failure raises, and
 engine="pallas" never becomes "xla" on its own. The port reads no
 environment variables: the engine, tile and K are constructor arguments.
@@ -42,7 +47,6 @@ from raft_tpu_torch.metrics import device as metmod
 from raft_tpu_torch.ops import fused as fmod
 from raft_tpu_torch.ops import log as lgmod
 from raft_tpu_torch.ops import round_cuda
-from raft_tpu_torch.state import fat_state, slim_state
 
 I32 = torch.int32
 
@@ -143,10 +147,12 @@ def round_kernel_ref(
     ops_round0_only=True, do_tick=True, auto_propose=False, auto_compact_lag=None,
 ):
     """What one launch of csrc/round.cu computes, in plain PyTorch: kc
-    rounds of route_fabric -> fused_round on the slim carry, the slim casts
-    replayed between rounds, ops applied (when apply_ops) in round 0 only
-    or in every round, and with metrics on (sampler given) fresh zeroed
-    delta slots each round, one row per run of `cta` lanes. Returns
+    rounds of route_fabric -> fused_round on the carry, its storage
+    boundary (fused.carry_boundary: the slim casts, or on a packed carry
+    the diet-v2 store_carry / load_carry pair) replayed between rounds,
+    ops applied (when apply_ops) in round 0 only or in every round, and
+    with metrics on (sampler given) fresh zeroed delta slots each round,
+    one row per run of `cta` lanes. Returns
     (state, fab, sampler, partials [kc, n / cta, PARTIAL_WIDTH] or None),
     as round_cuda.round_call does."""
     n = state.term.shape[0]
@@ -161,7 +167,8 @@ def round_kernel_ref(
             counters=None, hist=None, lat_sum=None, round_ctr=round_ctr,
             samp_index=sampler[0], samp_round=sampler[1],
         )
-    st, fb = slim_state(state), fmod.slim_fabric(fab)
+    load, store = fmod.carry_boundary(state)
+    st, fb = store(state, fab)
     parts = []
     for k in range(kc):
         if mt is not None:
@@ -172,12 +179,13 @@ def round_kernel_ref(
                 lat_sum=torch.zeros((rows,), dtype=I32, device=dev),
             )
         o = ops if apply_ops and (k == 0 or not ops_round0_only) else zero_ops
-        inb = fmod.route_fabric(fmod.fat_fabric(fb), v, mute, peer_mute=peer_mute)
+        st, fb = load(st, fb)
+        inb = fmod.route_fabric(fb, v, mute, peer_mute=peer_mute)
         res = fmod.fused_round(
-            fat_state(st), inb, o, mute, peer_mute=peer_mute, do_tick=do_tick,
+            st, inb, o, mute, peer_mute=peer_mute, do_tick=do_tick,
             auto_propose=auto_propose, auto_compact_lag=auto_compact_lag, metrics=mt,
         )
-        st, fb = slim_state(res[0]), fmod.slim_fabric(res[1])
+        st, fb = store(res[0], res[1])
         if mt is not None:
             mt = res[2]
             row = torch.cat([mt.counters, mt.hist, mt.lat_sum[:, None]], dim=1)
@@ -230,8 +238,7 @@ def pallas_rounds(
     contract and trajectory as ops/fused.py fused_rounds (module doc).
     Returns (state, fab) or (state, fab, metrics)."""
     validate_round_plan(rounds_per_call)
-    state = slim_state(state)
-    fab = fmod.slim_fabric(fab)
+    state, fab = fmod.carry_boundary(state)[1](state, fab)
     n = state.term.shape[0]
     check_tile(n, v, tile_lanes)
     cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v))

@@ -6,22 +6,29 @@ version (ops/pallas_round.py `round_kernel_ref`); for tensors on the card it
 checks every leaf's device, dtype, shape and contiguity, launches the kernel
 on the current stream, and raises on anything the kernel does not take or on
 a refused launch. There is no fallback from the card to the plain version.
-The launches are counted in `KERNELS["round_kernel"].launches`.
+The launches are counted in `KERNELS["round_kernel"].launches`, and those
+of the diet-v2 build (a packed carry, state.is_packed) in
+`KERNELS["round_kernel_diet"].launches`.
 
-| kernel        | replaces (raft_tpu/ops/pallas_round.py)                 |
-| round_kernel  | make_call(kc).kernel :564, pl.pallas_call :745          |
+| kernel             | replaces (raft_tpu/ops/pallas_round.py)                 |
+| round_kernel       | make_call(kc).kernel :564, pl.pallas_call :745          |
+| round_kernel_diet  | the same, its packed-carry branch :599-603, :655-660,   |
+|                    | :707-710                                                |
 
 The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
-order, with each leaf's storage dtype and shape, as X-macro tables;
-`layout()` parses them, and every launch checks that the two agree.
+order, with each leaf's storage dtype and shape, as X-macro tables, and
+beside them the diet-v2 tables of the leaves whose packed storage differs;
+`layout(diet)` parses them, and every launch checks that the two agree.
 
-The kernel is compiled for one Shape (V, W, E, F, R as -D macros) and
-one column stride S of its shared memory (`stride(cta)`): the first launch
-at a Shape and block size builds its library (`target`), and a Shape the
+The kernel is compiled for one Shape (V, W, E, F, R as -D macros), one
+column stride S of its shared memory (`stride(cta)`) and one carry layout
+(slim, or diet-v2 packed with -DRAFT_DIET=1): the first launch at a Shape,
+block size and layout builds its library (`target`), and a Shape the
 kernel does not take, or a library that does not build, raises naming the
-Shape. `smem_bytes` is csrc/round.cu's Block: the shared memory a CUDA
-block takes, which bounds its lane count (`cta_lanes`).
+Shape. A packed carry never runs the slim build. `smem_bytes` is
+csrc/round.cu's Block: the shared memory a CUDA block takes (the same in
+both builds), which bounds its lane count (`cta_lanes`).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 from raft_tpu_torch import build
 from raft_tpu_torch.ops.fused import Fabric, LocalOps
 from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
-from raft_tpu_torch.state import LaneConfig, RaftState
+from raft_tpu_torch.state import LaneConfig, RaftState, is_packed
 
 I32 = torch.int32
 MAX_V = 8  # csrc/round.cu takes V = 1..8 ...
@@ -49,13 +56,12 @@ PARTIAL_WIDTH = 128  # csrc/round.cu kPartialWidth
 PART_USED = 25  # csrc/round.cu kPartUsed
 
 _P = ctypes.c_void_p
+_ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
 KERNELS = {
-    "round_kernel": Kernel(
-        "round_kernel", "raft_round",
-        [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P], lib="round",
-    )
+    name: Kernel(name, "raft_round", _ROUND_ARGS, lib="round")
+    for name in ("round_kernel", "round_kernel_diet")
 }
-_SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1}
+_SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1, "U16": 2, "U8": 1}
 _RINGS = ("WIN", "INFL", "READ", "READ_PEER")
 # the state leaves the round never touches: they go from input to output
 # in registers and bypass shared memory (csrc/round.cu through())
@@ -67,7 +73,7 @@ F_MUTE, F_METRICS, F_TICK, F_AUTO_PROPOSE, F_LAG, F_OPS, F_OPS_ROUND0 = (
 )
 DTYPES = {
     "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
-    "BOOL": torch.bool, "U32": torch.uint32,
+    "BOOL": torch.bool, "U32": torch.uint32, "U16": torch.uint16, "U8": torch.uint8,
 }
 GROUPS = ("STATE", "CFG", "FABRIC", "OPS")
 _FAB_CHANNELS = tuple(f.name for f in dataclasses.fields(Fabric))
@@ -78,17 +84,32 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+def _table(text: str, name: str) -> tuple[tuple[str, str, str], ...]:
+    m = re.search(rf"#define {name}\(X\)(.*?)\n\n", text, re.S)
+    if m is None:
+        raise RuntimeError(f"csrc/round.cu has no {name} table")
+    return tuple(re.findall(r"X\((\w+),\s*(\w+),\s*(\w+)\)", m.group(1)))
+
+
 @functools.cache
-def layout() -> dict[str, tuple[tuple[str, str, str], ...]]:
-    """The leaf tables of csrc/round.cu: group -> ((name, dtype, shape), ...)
-    in table order."""
+def diet_rows() -> dict[str, tuple[tuple[str, str, str], ...]]:
+    """csrc/round.cu's diet-v2 tables: group -> ((name, packed dtype, packed
+    shape), ...) of the leaves whose storage the packed carry changes."""
     text = (build.CSRC / "round.cu").read_text()
-    out = {}
-    for group in GROUPS:
-        m = re.search(rf"#define RAFT_{group}_FIELDS\(X\)(.*?)\n\n", text, re.S)
-        if m is None:
-            raise RuntimeError(f"csrc/round.cu has no RAFT_{group}_FIELDS table")
-        out[group] = tuple(re.findall(r"X\((\w+),\s*(\w+),\s*(\w+)\)", m.group(1)))
+    return {g: _table(text, f"RAFT_{g}_DIET") if g != "OPS" else () for g in GROUPS}
+
+
+@functools.cache
+def layout(diet: bool = False) -> dict[str, tuple[tuple[str, str, str], ...]]:
+    """The leaf tables of csrc/round.cu: group -> ((name, dtype, shape), ...)
+    in table order, as the slim carry stores them, or with diet as the
+    diet-v2 packed carry does."""
+    text = (build.CSRC / "round.cu").read_text()
+    out = {g: _table(text, f"RAFT_{g}_FIELDS") for g in GROUPS}
+    if diet:
+        for g, rows in diet_rows().items():
+            packed = {row[0]: row for row in rows}
+            out[g] = tuple(packed.get(row[0], row) for row in out[g])
     return out
 
 
@@ -110,6 +131,9 @@ def dataclass_names() -> dict[str, tuple[str, ...]]:
 
 
 def _check_layout() -> None:
+    """Both tables of csrc/round.cu against the dataclasses: the slim
+    tables in field order, and each diet table naming leaves of its group
+    in that order."""
     table = {g: tuple(name for name, _, _ in rows) for g, rows in layout().items()}
     want = dataclass_names()
     for g in GROUPS:
@@ -117,6 +141,12 @@ def _check_layout() -> None:
             raise RuntimeError(
                 f"csrc/round.cu RAFT_{g}_FIELDS differs from the dataclass "
                 f"field order: {table[g]} != {want[g]}"
+            )
+        packed = tuple(name for name, _, _ in diet_rows()[g])
+        if packed != tuple(name for name in want[g] if name in packed):
+            raise RuntimeError(
+                f"csrc/round.cu RAFT_{g}_DIET names leaves that are not "
+                f"{g} leaves in field order: {packed}"
             )
 
 
@@ -184,11 +214,13 @@ def stride(cta: int) -> int:
     return -(-cta // 32) * 32
 
 
-def target(d: dict, cta: int) -> build.Target:
-    """The library of the kernel for Shape d and blocks of cta lanes."""
+def target(d: dict, cta: int, diet: bool = False) -> build.Target:
+    """The library of the kernel for Shape d and blocks of cta lanes, of
+    the diet-v2 build (-DRAFT_DIET=1) with diet."""
     return build.Target(
         "round",
-        tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),),
+        tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),)
+        + ((("RAFT_DIET", 1),) if diet else ()),
     )
 
 
@@ -247,7 +279,7 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     if not 1 <= kc:
         raise ValueError(f"kc must be >= 1, got {kc}")
     dev = state.term.device
-    tab = layout()
+    tab = layout(is_packed(state))
     groups = {
         "STATE": _state_leaves(state), "CFG": _cfg_leaves(state),
         "FABRIC": _fab_leaves(fab), "OPS": list(ops),
@@ -304,7 +336,8 @@ def as_c_args(ptrs, dims):
 def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
                apply_ops=True, ops_round0_only=True, do_tick=True,
                auto_propose=False, auto_compact_lag=None):
-    """kc rounds in one launch. state/fab: the slim carry; sampler:
+    """kc rounds in one launch. state/fab: the slim carry, or the diet-v2
+    packed carry (the diet build of the kernel runs it); sampler:
     (samp_index, samp_round) with metrics on, else None; round_ctr: the
     metrics round counter ([] int32 tensor). Returns (state, fab, sampler,
     partials [kc, n / cta, PARTIAL_WIDTH] int32 or None)."""
@@ -316,19 +349,22 @@ def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
 
         return round_kernel_ref(state, fab, ops, mute, sampler, round_ctr, **kw)
     ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr, **kw)
-    t = library(dims_of(state, fab, v), cta)
+    diet = is_packed(state)
+    t = library(dims_of(state, fab, v), cta, diet)
     arr, nptr, cdims = as_c_args(ptrs, dims)
-    KERNELS["round_kernel"].launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
+    kernel = KERNELS["round_kernel_diet" if diet else "round_kernel"]
+    kernel.launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
     return outputs
 
 
-def library(d: dict, cta: int) -> build.Target:
-    """Build (once) the kernel for Shape d and blocks of cta lanes; raises
-    naming the Shape when its library does not build. Returns the build
-    target."""
-    t = target(d, cta)
+def library(d: dict, cta: int, diet: bool = False) -> build.Target:
+    """Build (once) the kernel for Shape d and blocks of cta lanes (the
+    diet-v2 build with diet); raises naming the Shape when its library
+    does not build. Returns the build target."""
+    t = target(d, cta, diet)
+    name = "round_kernel_diet" if diet else "round_kernel"
     try:
-        KERNELS["round_kernel"].fn(t)
+        KERNELS[name].fn(t)
     except RuntimeError as e:
-        raise RuntimeError(f"round_kernel for {shape_name(d)} did not build: {e}") from e
+        raise RuntimeError(f"{name} for {shape_name(d)} did not build: {e}") from e
     return t

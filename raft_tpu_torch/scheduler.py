@@ -11,6 +11,7 @@ trajectory matches the JAX package block for block.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.config import Shape, resolve_device
@@ -23,8 +24,8 @@ from raft_tpu_torch.types import StateType
 class BlockedFusedCluster:
     """The driving API mirrors FusedCluster; per-lane injections address
     lanes in global order (block i owns lanes [i*B*V, (i+1)*B*V)). Runs on
-    `cuda` unless `device` names another device. engine / tile_lanes /
-    rounds_per_call pass through to every block (FusedCluster)."""
+    `cuda` unless `device` names another device. diet / engine / tile_lanes
+    / rounds_per_call pass through to every block (FusedCluster)."""
 
     def __init__(
         self,
@@ -128,9 +129,18 @@ class BlockedFusedCluster:
             snaps.append(b._metrics_acc.snapshot())
         return merge_snapshots(snaps)
 
+    def state_columns(self, *names) -> dict:
+        """The named [N_block]-leading state columns of every block,
+        concatenated in global lane order, each read through the block's
+        host_state (packed columns widen to absolute int32)."""
+        cols = [b.state_columns(*names) for b in self.blocks]
+        return {name: np.concatenate([c[name] for c in cols]) for name in names}
+
     def total_committed(self) -> int:
+        # widened before the sum: a diet-v2 packed committed column is
+        # uint16, which PyTorch does not reduce
         return int(
-            sum(b.state.committed.sum(dtype=torch.int64) for b in self.blocks)
+            sum(b.state.committed.to(torch.int64).sum() for b in self.blocks)
         )
 
     def leader_count(self) -> int:

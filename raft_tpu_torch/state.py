@@ -180,6 +180,140 @@ def fat_state(state: RaftState) -> RaftState:
     return _cast_fields(state, STATE_SLIM, widen=True)
 
 
+# --------------------------------------------------------------------------
+# Byte diet v2 (raft_tpu/state.py:252-455): packed bitsets and narrow
+# rebased indexes, a second storage boundary below slim/fat.
+#
+# `pack_state` narrows the slim layout further for the resident carry and
+# `unpack_state` restores it exactly; both are idempotent, and for every
+# in-range value unpack_state(pack_state(x)) equals slim_state(x), so diet
+# on and off walk one trajectory. Every [N, V] bool mask (and the [N, R, V]
+# ro_acks) becomes one bitset word per lane; index and term columns become
+# uint16 absolute values in the rebased index space (FusedCluster's
+# automatic rebase keeps them under DIET_REBASE_AT); canonical-id columns
+# int8; log_bytes int16 under Shape.max_entry_bytes. A value out of its
+# packed range clamps and sets ERR_DIET_OVERFLOW in error_bits, which is
+# never packed. The JAX lease columns are not in this port's RaftState.
+
+ERR_DIET_OVERFLOW = 64
+
+# inclusive value range of each packed storage dtype
+_DIET_RANGE = {
+    torch.uint16: (0, (1 << 16) - 1),
+    torch.int16: (-(1 << 15), (1 << 15) - 1),
+    torch.int8: (-128, 127),
+}
+
+# rebased index columns and term columns -> uint16 (the index fields are
+# exactly the set ops/log.py rebase_indexes shifts)
+PACK_U16 = (
+    "term", "snap_term", "pending_snap_term", "avail_snap_term", "log_term",
+    "last", "stabled", "committed", "applying", "applied",
+    "snap_index", "pending_snap_index", "avail_snap_index",
+    "pending_conf_index",
+    "pr_match", "pr_next", "pr_pending_snapshot",
+    "infl_index", "ro_index", "rs_index",
+)
+# canonical raft ids 1..V (V <= 32) -> int8
+PACK_I8 = ("id", "vote", "lead", "lead_transferee", "prs_id", "ro_from", "pri_from")
+# entry payload sizes bounded by Shape.max_entry_bytes -> int16
+PACK_I16 = ("log_bytes",)
+# bool mask columns -> one bitset word per lane along the trailing V axis
+PACK_BITSET = (
+    "voters_in", "voters_out", "learners", "learners_next",
+    "pr_recent_active", "pr_msg_app_flow_paused", "ro_acks",
+)
+# LaneConfig columns whose bounds make_lane_config validates
+CFG_PACK = {
+    "election_tick": torch.int16,
+    "heartbeat_tick": torch.int16,
+    "max_inflight": torch.int8,
+}
+
+
+def bitset_dtype(v: int):
+    """Smallest unsigned word holding v mask bits (Shape caps v at 32)."""
+    if v <= 8:
+        return torch.uint8
+    if v <= 16:
+        return torch.uint16
+    if v <= 32:
+        return torch.uint32
+    raise ValueError(f"bitset packing needs v <= 32, got {v}")
+
+
+def pack_bits(x, dtype):
+    """[..., V] bool -> [...] bitset word (bit j = column j)."""
+    v = x.shape[-1]
+    w = torch.ones((), dtype=torch.int64, device=x.device) << torch.arange(
+        v, dtype=torch.int64, device=x.device
+    )
+    return (x.to(torch.int64) * w).sum(dim=-1).to(dtype)
+
+
+def unpack_bits(x, v: int):
+    """[...] bitset word -> [..., V] bool (exact inverse of pack_bits)."""
+    sh = torch.arange(v, dtype=torch.int64, device=x.device)
+    return ((x.to(torch.int64)[..., None] >> sh) & 1).to(BOOL)
+
+
+def is_packed(state: RaftState) -> bool:
+    """The diet-v2 layout: its mask columns are [N] bitset words."""
+    return state.voters_in.dim() == 1
+
+
+def pack_state(state: RaftState) -> RaftState:
+    """Slim/fat -> diet-v2 packed storage (idempotent). Values outside a
+    field's packed range clamp and set ERR_DIET_OVERFLOW on their lane."""
+    if is_packed(state):
+        return state
+    state = slim_state(state)
+    bd = bitset_dtype(state.voters_in.shape[-1])
+    ovf = torch.zeros(state.term.shape, dtype=BOOL, device=state.term.device)
+    upd = {}
+
+    def narrow(name, dt):
+        nonlocal ovf
+        x = getattr(state, name)
+        lo, hi = _DIET_RANGE[dt]
+        bad = (x < lo) | (x > hi)
+        if bad.dim() > 1:
+            bad = bad.flatten(1).any(dim=1)
+        ovf = ovf | bad
+        upd[name] = torch.clamp(x, lo, hi).to(dt)
+
+    for f in PACK_U16:
+        narrow(f, torch.uint16)
+    for f in PACK_I8:
+        narrow(f, torch.int8)
+    for f in PACK_I16:
+        narrow(f, torch.int16)
+    for f in PACK_BITSET:
+        upd[f] = pack_bits(getattr(state, f), bd)
+    upd["error_bits"] = state.error_bits | torch.where(ovf, ERR_DIET_OVERFLOW, 0).to(I32)
+    # make_lane_config enforces these bounds: the casts are exact
+    upd["cfg"] = dataclasses.replace(
+        state.cfg, **{k: getattr(state.cfg, k).to(dt) for k, dt in CFG_PACK.items()}
+    )
+    return dataclasses.replace(state, **upd)
+
+
+def unpack_state(state: RaftState) -> RaftState:
+    """Diet-v2 packed -> the exact slim layout (idempotent). Host readers
+    (FusedCluster.host_state) read through this, so every value surfaces
+    absolute and in the dtypes of a carry without the diet."""
+    if not is_packed(state):
+        return state
+    v = state.prs_id.shape[-1]  # [N, V] survives packing (dtype only)
+    upd = {f: getattr(state, f).to(I32) for f in PACK_U16 + PACK_I8 + PACK_I16}
+    for f in PACK_BITSET:
+        upd[f] = unpack_bits(getattr(state, f), v)
+    upd["cfg"] = dataclasses.replace(
+        state.cfg, **{k: getattr(state.cfg, k).to(I32) for k in CFG_PACK}
+    )
+    return dataclasses.replace(state, **upd)
+
+
 def make_lane_config(shape: Shape, device, **overrides) -> LaneConfig:
     n = shape.n
     defaults = dict(

@@ -152,3 +152,73 @@ def test_round_kernel_bench_widths_k8(card):
             assert x.dtype == y.dtype and np.array_equal(x, y)
     for x, y in zip(got[2] + (got[3],), want[2] + (want[3],)):
         assert torch.equal(x, y)
+
+
+def _diet_cluster(dev, near: bool):
+    """A warmed 32-group diet-v2 cluster (V=3, bench widths); with `near`,
+    its largest index brought to 65,531, so that the next rounds' appends
+    overflow the packed uint16 columns."""
+    v, g = 3, 32
+    shape = Shape(n_lanes=g * v, max_peers=v, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    c = FusedCluster(g, v, seed=4, shape=shape, device=dev, diet=True)
+    c.run(20, auto_propose=True, auto_compact_lag=4)
+    if near:
+        from chip_smoke import approach_u16_top
+
+        approach_u16_top(c)
+    return c
+
+
+@pytest.mark.parametrize("near", [False, True], ids=["in_range", "overflow"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_diet_round_kernel_equals_plain(card, k, near):
+    """The diet build of the megakernel against round_kernel_ref on the same
+    packed card carry, two launches of k rounds with proposals each: every
+    packed leaf, partials row and sampler equal; on the overflow carry the
+    clamped columns and ERR_DIET_OVERFLOW bits too."""
+    from raft_tpu_torch.ops import pallas_round as plr
+    from raft_tpu_torch.ops import round_cuda as rc
+    from raft_tpu_torch.state import ERR_DIET_OVERFLOW, is_packed
+
+    c = _diet_cluster(card, near)
+    n = c.state.term.shape[0]
+    ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=3,
+                read_ctx={i: 9 + i for i in range(n)})
+    kw = dict(v=c.v, kc=k, cta=2 * c.v, do_tick=True, auto_propose=True, auto_compact_lag=4)
+    before = {name: q.launches for name, q in rc.KERNELS.items()}
+    for _ in range(2):
+        m = c.metrics
+        args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+        got = rc.round_call(*args, **kw)
+        want = plr.round_kernel_ref(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:2], want[:2]):
+            for x, y in zip(interop.to_numpy_leaves(a), interop.to_numpy_leaves(b)):
+                assert x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(got[2] + (got[3],), want[2] + (want[3],)):
+            assert torch.equal(x, y)
+        c.state, c.fab = got[0], got[1]
+        c.metrics = plr.fold_partials(m, got[2], got[3], k)
+    assert is_packed(c.state)
+    assert rc.KERNELS["round_kernel_diet"].launches == before["round_kernel_diet"] + 2
+    assert rc.KERNELS["round_kernel"].launches == before["round_kernel"]
+    assert bool(((c.state.error_bits & ERR_DIET_OVERFLOW) != 0).any()) == near
+
+
+def test_diet_pallas_on_card_matches_cpu(card):
+    """engine="pallas" with diet=True on the card against the eager engine
+    with diet=True on the CPU: 33 rounds of 16 groups at K=3, one sha256
+    over every packed state, fabric and metrics leaf."""
+    shape = Shape(n_lanes=48, max_peers=3, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    digests = {}
+    for dev, engine in ((None, dict(engine="pallas", rounds_per_call=3)), ("cpu", {})):
+        c = FusedCluster(16, 3, seed=9, shape=shape, device=dev, diet=True, **engine)
+        c.run(33, auto_propose=True, auto_compact_lag=4)
+        digests[dev] = interop.digest(
+            interop.to_numpy_leaves(c.state)
+            + interop.to_numpy_leaves(c.fab)
+            + interop.to_numpy_leaves(c.metrics)
+        )
+    assert digests[None] == digests["cpu"]

@@ -4,7 +4,10 @@ raft_round_host entry runs the kernel's phases block by block on a
 block-sized buffer with the kernel's shared-memory layout, held against the
 kernel's plain version (ops/pallas_round.py round_kernel_ref) through
 partitions, re-elections, proposals, reads, transfers and conf changes, at
-K = 1 and 3 rounds per launch. Exact equality on every carry leaf and
+K = 1 and 3 rounds per launch; and its diet-v2 build (-DRAFT_DIET=1) on
+the packed carry, through a carry fast-forwarded to just under 65,535 so
+that rounds overflow the packed uint16 columns and the boundary's clamps
+and ERR_DIET_OVERFLOW bits show. Exact equality on every carry leaf and
 partials row. Skips without a C++ compiler.
 """
 
@@ -16,12 +19,14 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from raft_tpu_torch import build, interop
 from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW, is_packed
 
 G = 4
 RUN = dict(auto_propose=True, auto_compact_lag=4)
@@ -47,14 +52,16 @@ CASES = [
     (8, dict(pre_vote=True, check_quorum=True), BASE),
     (3, {}, WRAP), (5, dict(pre_vote=True, check_quorum=True), WRAP),
 ]
+# (v, cfg, (w, e, f, r)) of the diet build's lane tests
+DIET_CASES = [(3, {}, BASE), (5, dict(pre_vote=True, check_quorum=True), WRAP)]
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """(v, (w, e, f, r)) -> csrc/round.cu compiled as plain C++ for that
-    Shape and blocks of up to 32 lanes. The first request starts one
-    compiler per Shape of CASES, all at once; each library is loaded when
-    it is first asked for."""
+    """(v, (w, e, f, r), diet) -> csrc/round.cu compiled as plain C++ for
+    that Shape, blocks of up to 32 lanes and carry layout. The first
+    request starts one compiler per library of CASES and DIET_CASES, all at
+    once; each library is loaded when it is first asked for."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler for the host build of csrc/round.cu")
@@ -63,9 +70,9 @@ def host_lib(tmp_path_factory):
     libs = {}
 
     def start(key):
-        v, wefr = key
+        v, wefr, diet = key
         d = dict(zip("vwefr", (v, *wefr)))
-        t = rc.target(d, 2 * v)
+        t = rc.target(d, 2 * v, diet)
         so = root / f"{t.key}.so"
         proc = subprocess.Popen(
             [cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas",
@@ -74,11 +81,12 @@ def host_lib(tmp_path_factory):
         )
         procs[key] = (proc, so)
 
-    def get(v, wefr=BASE):
-        key = (v, wefr)
+    def get(v, wefr=BASE, diet=False):
+        key = (v, wefr, diet)
         if key not in libs:
             if not procs:
-                for k in dict.fromkeys((cv, cw) for cv, _, cw in CASES):
+                for k in dict.fromkeys([(cv, cw, False) for cv, _, cw in CASES]
+                                       + [(cv, cw, True) for cv, _, cw in DIET_CASES]):
                     start(k)
             if key not in procs:
                 start(key)
@@ -91,6 +99,8 @@ def host_lib(tmp_path_factory):
             lib.raft_round_smem.argtypes = []
             lib.raft_round_smem.restype = ctypes.c_longlong
             lib.raft_round_shape.argtypes = [ctypes.c_void_p]
+            lib.raft_round_diet.argtypes = []
+            lib.raft_round_diet.restype = ctypes.c_int
             libs[key] = lib
         return libs[key]
 
@@ -175,3 +185,46 @@ def test_library_is_its_shape(host_lib, v, wefr):
         bad[k] += 1
         arr, nptr, cdims = rc.as_c_args(ptrs, bad)
         assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 1, k
+
+
+@pytest.mark.parametrize("near", [False, True], ids=["in_range", "overflow"])
+@pytest.mark.parametrize("v,cfg,wefr", DIET_CASES)
+def test_diet_lane_code_equals_plain_version(host_lib, v, cfg, wefr, near):
+    """The diet build on the packed carry against round_kernel_ref on the
+    same carry, eight launches at K = 1 and 3 after an eager warm-up, with
+    proposals and reads. `overflow`: the index space fast-forwarded to just
+    under 65,535 first (a negative rebase), so appends cross the packed
+    uint16 range within the launches; the clamped values and the
+    ERR_DIET_OVERFLOW bits must equal the plain version's."""
+    lib = host_lib(v, wefr, diet=True)
+    assert lib.raft_round_diet() == 1 and host_lib(v, wefr).raft_round_diet() == 0
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v, wefr), device="cpu", diet=True,
+                            **cfg)
+    c.run(12, **RUN)
+    if near:
+        w = wefr[0]
+        top = int(c.host_state().last.max())
+        c.rebase_groups(range(G), delta=-(((65535 - 4 - top) // w) * w))
+    assert is_packed(c.state) and not (c.state.error_bits & ERR_DIET_OVERFLOW).any()
+    for r in range(8):
+        ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=5,
+                    read_ctx={i: 9 + i for i in range(n)}) if r % 4 == 0 else c._no_ops
+        m = c.metrics
+        args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+        kc = 1 + 2 * (r % 2)
+        kw = dict(v=v, kc=kc, cta=2 * v, apply_ops=True, ops_round0_only=True, do_tick=True,
+                  auto_propose=True, auto_compact_lag=2)
+        want = plr.round_kernel_ref(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got)):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (near, r, name)
+        c.state, c.fab = want[0], want[1]
+        c.metrics = plr.fold_partials(m, want[2], want[3], kc)
+    assert is_packed(c.state)
+    flagged = (c.state.error_bits & ERR_DIET_OVERFLOW) != 0
+    assert bool(flagged.any()) == near
+    if near:  # the clamp held the column at the top of its range
+        assert int(c.state.last.to(torch.int32).max()) == 65535
