@@ -90,6 +90,12 @@ class BlockedFusedCluster:
                 raise ValueError(
                     f"per-block ops list must have {self.k} entries, got {len(per_ops)}"
                 )
+        if self.k == 1:
+            # one block: all rounds in one dispatch, as the JAX package runs
+            # it (raft_tpu/scheduler.py:343-359), so the diet-v2 headroom
+            # projects rounds * (E + 1) once and rebases when JAX does
+            self.blocks[0].run(rounds, ops=None if per_ops is None else per_ops[0], **kw)
+            return
         ops_first = kw.get("ops_first_round_only", True)
         for step, first in self.sweep(rounds):
             for i, b in enumerate(self.blocks):

@@ -26,6 +26,7 @@ import tests.test_diet as jdiet
 from raft_tpu import state as jst
 from raft_tpu.config import Shape as JShape
 from raft_tpu.ops import fused as jfused
+from raft_tpu.scheduler import BlockedFusedCluster as JBlocked
 from raft_tpu_torch import interop
 from raft_tpu_torch import state as tst
 from raft_tpu_torch.config import Shape
@@ -339,6 +340,35 @@ def test_blocked_diet_equals_slim():
     cols = ("committed", "last", "voters_in")
     a, b = on.state_columns(*cols), off.state_columns(*cols)
     assert all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in cols)
+
+
+@pytest.mark.parametrize("blocks", [1, 2])
+def test_blocked_diet_rebases_when_jax_does(blocks):
+    """One and two diet blocks against JAX's BlockedFusedCluster: 30
+    rounds, block 0 fast-forwarded to 49,072 + its last index, 30 more.
+    One block runs all 30 rounds in one dispatch, as JAX does, so the
+    automatic rebase projects 30 * (E + 1) at once and fires when JAX's
+    does; two blocks sweep in round_chunk pieces on both sides. Every
+    block's host_state digest equals JAX's after each step."""
+    kw = dict(block_groups=G, seed=7, round_chunk=STEP)
+    jb = JBlocked(G * blocks, V, shape=JShape(n_lanes=N, **SHAPE), **kw)
+    tb = BlockedFusedCluster(G * blocks, V, shape=Shape(n_lanes=N, **SHAPE), device="cpu",
+                             diet=True, **kw)
+    tops = []
+    for step in ("run", "fast-forward", "run"):
+        for c in (jb, tb):
+            if step == "run":
+                c.run(30, **RUN)
+            else:
+                c.blocks[0].rebase_groups(range(G), delta=-49072)
+        for i, (jx, tx) in enumerate(zip(jb.blocks, tb.blocks)):
+            assert interop.digest(jax_leaves(jx.host_state())) == interop.digest(
+                interop.to_numpy_leaves(tx.host_state())), (step, i)
+        tops.append(int(tb.blocks[0].host_state().last.max()))
+    tb.check_no_errors()
+    # one block projects 90 past the fast-forward, over DIET_REBASE_AT, and
+    # rebases down; two blocks project 9 a chunk and stay up, as in JAX
+    assert tops[1] > 49072 and (tops[2] < tops[0] + 60) == (blocks == 1)
 
 
 def test_adopt_state_repacks_the_host_view():
