@@ -102,10 +102,11 @@ from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import quorum as qr
 from raft_tpu_torch.ops import quorum_cuda as qc
+from raft_tpu_torch.ops import paged as tpg
 from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.ops.fused import FusedCluster, fused_rounds
 from raft_tpu_torch.scheduler import BlockedFusedCluster
-from raft_tpu_torch.state import ERR_DIET_OVERFLOW
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
@@ -118,14 +119,29 @@ SCALAR_OPS_PER_S = 67e12
 # round_kernel_timing; and the diet build at the engine block and the small
 # block.
 BENCH_WIDTHS = dict(w=16, e=2, f=2, r=2)
-ROUND_BUILDS = [(dict(v=3, **BENCH_WIDTHS), 96, False), (dict(v=3, **BENCH_WIDTHS), 6, False),
-                (dict(v=5, **BENCH_WIDTHS), 10, False), (dict(v=3, **BENCH_WIDTHS), 48, False),
-                (dict(v=3, **BENCH_WIDTHS), 192, False), (dict(v=3, **BENCH_WIDTHS), 96, True),
-                (dict(v=3, **BENCH_WIDTHS), 6, True)]
+# The paged builds' plan (W_res, PE, M) at the bench widths: Shape(page_window
+# =8, page_entries=4), benches/paged_ab.py's geometry
+PAGED_PLAN = (8, 4, 4)
+_B3 = dict(v=3, **BENCH_WIDTHS)
+# ... and the paged builds (in-kernel paging: the CUDA block is the lane tile)
+# at the engine block and the small block, slim and diet
+ROUND_BUILDS = [(_B3, 96, False, None), (_B3, 6, False, None),
+                (dict(v=5, **BENCH_WIDTHS), 10, False, None), (_B3, 48, False, None),
+                (_B3, 192, False, None), (_B3, 96, True, None), (_B3, 6, True, None),
+                (_B3, 96, False, PAGED_PLAN), (_B3, 96, True, PAGED_PLAN),
+                (_B3, 6, False, PAGED_PLAN), (_B3, 6, True, PAGED_PLAN)]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
 BLOCK_LANES = MAIN_BLOCK_GROUPS * VOTERS  # 196,608
+# the paged main path: 32 blocks of 32,768 groups (a page id is uint16, so a
+# block's pool holds at most 65,536 pages), and paged_ab's pool of about one
+# page per two lanes plus headroom, rounded up to split over the block's
+# 1,024 tiles of 96 lanes
+PAGED_BLOCK_GROUPS = 1 << 15
+PAGED_BLOCK_LANES = PAGED_BLOCK_GROUPS * VOTERS  # 98,304
+PAGED_POOLS = (50_176, 65_536)  # the first, then the most a block holds
+PAGED_SWEEP = 16  # rounds per Zipf sweep (benches/paged_ab.py AB_ROUNDS)
 TIMED_ROUNDS = 32
 WARM_LIMIT = 40 * 16  # bench.py:76-84
 
@@ -738,11 +754,11 @@ def round_ops(n: int, v: int, w: int, e: int, f: int, r: int) -> int:
     return per_lane * n
 
 
-def round_occupancy(d: dict, cta: int, diet: bool = False) -> dict:
+def round_occupancy(d: dict, cta: int, diet: bool = False, plan=None) -> dict:
     """csrc/round.cu raft_round_info for the Shape's library: shared memory
     of a block of cta lanes, resident blocks per SM, registers and local
     (stack) bytes per thread, as the runtime reports them."""
-    fn = build.load(rc.target(d, cta, diet)).raft_round_info
+    fn = build.load(rc.target(d, cta, diet, plan)).raft_round_info
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
@@ -775,7 +791,7 @@ def engine_cta(d: dict) -> int:
 
 def build_all() -> None:
     t0 = time.perf_counter()
-    built = build.build("quorum", *(rc.target(d, cta, diet) for d, cta, diet in ROUND_BUILDS))
+    built = build.build("quorum", *(rc.target(*b) for b in ROUND_BUILDS))
     rows = {}
     for key, b in built.items():
         fns = ptxas_report(b.log)
@@ -793,8 +809,8 @@ def build_all() -> None:
             }
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
-    for d, cta, diet in ROUND_BUILDS:
-        rows[rc.target(d, cta, diet).key].update(cta_lanes=cta, **round_occupancy(d, cta, diet))
+    for b in ROUND_BUILDS:
+        rows[rc.target(*b).key].update(cta_lanes=b[1], **round_occupancy(*b))
     emit("build", seconds=time.perf_counter() - t0, targets=rows)
 
 
@@ -873,6 +889,292 @@ def time_round_kernel(c, phase="round_kernel_timing"):
             sweep[cb][f"k{kc}_ms"] = cuda_ms(go, iters=50 if kc == 1 else 10)
             del go, outs
     row = dict(rows[1], cta_lanes=cta, lanes=shape.n_lanes, k8=rows[8], cta_sweep=sweep)
+    emit(phase, **row)
+    return row
+
+
+
+# -- the paged entry log (in-kernel paging) ------------------------------------
+
+
+def paged_shape(n_lanes: int, pool: int = 0) -> Shape:
+    """The bench shape with benches/paged_ab.py's paging geometry (W=16, a
+    resident tail of 8, pages of 4 entries); pool 0 provisions fully."""
+    return Shape(n_lanes=n_lanes, max_peers=VOTERS, log_window=16, page_window=8,
+                 page_entries=4, max_msg_entries=2, max_inflight=2, max_read_index=2,
+                 pool_pages=pool)
+
+
+def paged_leaves(pg) -> list:
+    return [("paged." + k, x) for k, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(pg))]
+
+
+def check_round_kernel_paged(dev):
+    """The paged builds against round_kernel_ref on the card: slim and diet,
+    K = 1 and 8, a full pool and one of 8 pages a segment (lanes exhaust),
+    on a 16-group cluster in 6-lane tiles (8 allocation segments) warmed
+    12 rounds: two 9-round dispatches with proposals as pallas_rounds
+    launches them, then quiet launches (no tick, no proposals) until the
+    allocator is skipped; every carry leaf, partials row and PagedLog leaf
+    exact after each launch; raises naming the first differing leaf."""
+    cases = skipped = exhausted = 0
+    for diet in (False, True):
+        for k in (1, 8):
+            for pool in (0, 64):
+                c = FusedCluster(16, VOTERS, seed=5, device=dev, shape=paged_shape(48, pool),
+                                 diet=diet, engine="pallas", tile_lanes=6, paged=True,
+                                 paged_inkernel=True)
+                c.run(12, auto_propose=True, auto_compact_lag=12)
+                n = c.g * c.v
+                ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=7)
+                plan = [k] * (9 // k) + ([9 % k] if 9 % k else [])
+                launches = [(kc, i == 0, False) for i, kc in enumerate(plan)] * 2
+                launches += [(k, False, True)] * 6
+                skip0 = int(c.paged.skipped.sum())
+                for i, (kc, first, quiet) in enumerate(launches):
+                    m = c.metrics
+                    kw = dict(v=c.v, kc=kc, cta=6, apply_ops=first, ops_round0_only=True,
+                              do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12,
+                              paged=c.paged)
+                    args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round),
+                            m.round_ctr)
+                    got, want = rc.round_call(*args, **kw), plr.round_kernel_ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    bad = first_difference(carry_leaves(*got[:4]) + paged_leaves(got[4]),
+                                           carry_leaves(*want[:4]) + paged_leaves(want[4]))
+                    if bad is not None:
+                        raise AssertionError(f"round_kernel_paged diet={diet} K={k} pool={pool} "
+                                             f"launch {i}: first differing leaf {bad}")
+                    c.state, c.fab, c.paged = got[0], got[1], got[4]
+                    c.metrics = plr.fold_partials(c.metrics, got[2], got[3], kc)
+                    cases += 1
+                skips = int(c.paged.skipped.sum()) - skip0
+                hit = int(((c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0).sum())
+                if skips <= 0 or (hit > 0) != (pool > 0):
+                    raise AssertionError(f"round_kernel_paged diet={diet} K={k} pool={pool}: "
+                                         f"{skips} skipped lanes, {hit} exhausted lanes")
+                skipped += skips
+                exhausted += hit
+    emit("round_kernel_paged", launches_compared=cases,
+         cases="{slim, diet} x K{1,8} x {full pool, 8 pages a segment}",
+         lanes=48, tile_lanes=6, skipped_lane_launches=skipped, exhausted_lanes=exhausted,
+         max_abs_err=0)
+
+
+def check_parity_paged():
+    """Paged pallas engine (K=3) on the card against the CPU, 64 groups x 33
+    rounds at compaction lag 12, in-kernel (the default tile, the engine's
+    CUDA block) and at the dispatch boundary: one sha256 over every state,
+    fabric, metrics and PagedLog leaf; the host_state of each equal to the
+    unpaged CPU run's."""
+    g = 64
+    shape = paged_shape(g * VOTERS)
+
+    def run(dev, **kw):
+        c = FusedCluster(g, VOTERS, seed=11, shape=shape, device=dev, engine="pallas",
+                         rounds_per_call=3, **kw)
+        c.run(33, auto_propose=True, auto_compact_lag=12)
+        return c
+
+    flat = interop.digest(interop.to_numpy_leaves(run("cpu").host_state()))
+    out = {}
+    for mode, kw in (("inkernel", dict(paged=True, paged_inkernel=True)),
+                     ("boundary", dict(paged=True))):
+        d = {}
+        for dev in ("cuda", "cpu"):
+            c = run(dev, **kw)
+            d[dev] = interop.digest(interop.to_numpy_leaves(c.state) + interop.to_numpy_leaves(c.fab)
+                                    + interop.to_numpy_leaves(c.metrics)
+                                    + interop.to_numpy_leaves(c.paged))
+            d[f"{dev}_host"] = interop.digest(interop.to_numpy_leaves(c.host_state()))
+            d[f"{dev}_segs"] = c._paged_segs
+            d[f"{dev}_stats"] = c.paged_stats()
+        out[mode] = d
+        if d["cuda"] != d["cpu"] or d["cuda_host"] != flat:
+            raise AssertionError(f"parity_paged {mode}: card {d['cuda']} cpu {d['cpu']}, "
+                                 f"host {d['cuda_host']} flat {flat}")
+        if d["cuda_stats"]["paged_pool_in_use"] == 0:
+            raise AssertionError(f"parity_paged {mode}: the pool was never used")
+    emit("parity_paged", groups=g, rounds=33, flat_host_digest=flat, **out)
+
+
+def zipf_sweeps(c, sweeps: int) -> list:
+    """benches/paged_ab.py:120-137 on the whole cluster: groups ranked by a
+    seeded shuffle, rank r proposing every 2^min(bit_length(r), 5) sweeps
+    at its leader (rank 0 two entries a sweep, the others one): the
+    global-lane LocalOps of sweeps 0..sweeps-1."""
+    st = c.state_columns("state")["state"]
+    lanes = np.nonzero(st == 2)[0]  # StateType.LEADER
+    leader_of = np.full(c.g, -1, np.int64)
+    leader_of[(lanes // c.v)[::-1]] = lanes[::-1]  # the first leader lane of a group
+    rank = np.random.default_rng(7).permutation(c.g)
+    bits = np.zeros_like(rank)
+    nz = rank > 0
+    bits[nz] = np.floor(np.log2(rank[nz])).astype(rank.dtype) + 1
+    period = 1 << np.minimum(bits, 5)
+    out = []
+    for s in range(sweeps):
+        prop = np.zeros(c.g * c.v, np.int32)
+        on = (s % period == 0) & (leader_of >= 0)
+        prop[leader_of[on]] = np.where(rank[on] == 0, 2, 1)
+        out.append(c.prepare_ops(c.ops(prop_n=prop)))
+    return out
+
+
+def paged_bytes_per_lane(c) -> float:
+    """carry_bytes_per_lane plus the PagedLog sidecar's bytes."""
+    side = sum(tpg.paged_bytes_per_lane(b.paged) * b.shape.n_lanes for b in c.blocks
+               if b.paged is not None)
+    return carry_bytes_per_lane(c) + side / (c.g * c.v)
+
+
+def run_main_paged(dev, phase: str, pool: int, **paging):
+    """The paged main path at full width: 1,048,576 groups x 3 as 32 blocks
+    of 32,768 on engine="pallas" at K=8 (round_chunk 8), with
+    benches/paged_ab.py's traffic: elect under the shallow compaction lag
+    W_res / 2 = 4, then 4 Zipf sweeps of 16 rounds at lag W - 4 = 12 to
+    shape the depth profile, and 8 timed ones. Returns (cluster, the
+    phase's fields); raises on a stalled election or an error bit."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c = BlockedFusedCluster(MAIN_GROUPS, VOTERS, block_groups=PAGED_BLOCK_GROUPS, seed=42,
+                            shape=paged_shape(PAGED_BLOCK_LANES, pool), round_chunk=8,
+                            device=dev, engine="pallas", rounds_per_call=8, **paging)
+    qc.reset_launches()
+    rc.reset_launches()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rounds = 0
+    while c.leader_count() < MAIN_GROUPS:
+        c.run(PAGED_SWEEP, auto_propose=True, auto_compact_lag=4)
+        rounds += PAGED_SWEEP
+        if rounds > WARM_LIMIT:
+            raise RuntimeError(f"{phase}: election stalled at {c.leader_count()} leaders")
+    sweeps = zipf_sweeps(c, 8)
+    for s in range(4):
+        c.run(PAGED_SWEEP, ops=sweeps[s], auto_compact_lag=12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(8):
+        c.run(PAGED_SWEEP, ops=sweeps[s], auto_compact_lag=12)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds += 12 * PAGED_SWEEP
+    launches = {name: k.launches for name, k in rc.KERNELS.items()}
+    launches.update({name: k.launches for name, k in qc.KERNELS.items()})
+    stats = c.paged_stats() or {}
+    fields = dict(
+        **paging, pool_pages=pool, groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k,
+        block_groups=PAGED_BLOCK_GROUPS, rounds=rounds, setup_s=setup_s,
+        timed_rounds=8 * PAGED_SWEEP, timed_s=dt, round_ms=1e3 * dt / (8 * PAGED_SWEEP),
+        groups_ticks_per_s=MAIN_GROUPS * 8 * PAGED_SWEEP / dt, leaders=c.leader_count(),
+        total_committed=c.total_committed(),
+        segs_per_block=c.blocks[0]._paged_segs, tile_lanes=c.blocks[0]._pallas_tile,
+        carry_bytes_per_lane=paged_bytes_per_lane(c), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, expected_launches=rounds * c.k // 8, digest=host_digest(c), **stats,
+    )
+    return c, fields
+
+
+def check_main_paged(dev):
+    """main_pallas_paged: the paged main path in-kernel (the default 96-lane
+    tile: 1,024 segments a block), in-kernel with diet=True, at the
+    dispatch boundary, and with paging off: one host_state digest, the pool
+    in use, no error bit; round_kernel_paged (round_kernel_paged_diet)
+    launched rounds x blocks / K times in the in-kernel runs, round_kernel
+    in the others. A pool that exhausts is printed and the run repeated on
+    the next pool of PAGED_POOLS. Returns ({run: fields}, the in-kernel
+    slim and diet clusters' timing rows)."""
+    runs = {}
+    timing = {}
+    plans = (("inkernel", dict(paged=True, paged_inkernel=True), "round_kernel_paged"),
+             ("inkernel_diet", dict(paged=True, paged_inkernel=True, diet=True),
+              "round_kernel_paged_diet"),
+             ("boundary", dict(paged=True), "round_kernel"),
+             ("flat", {}, "round_kernel"))
+    for name, paging, kernel in plans:
+        for pool in PAGED_POOLS if paging else (0,):
+            c, f = run_main_paged(dev, f"main_pallas_paged_{name}", pool, **paging)
+            if not f.get("paged_exhausted"):
+                break
+            emit("main_pallas_paged_exhausted", run=name, pool_pages=pool,
+                 paged_exhausted=f["paged_exhausted"])
+            del c
+            torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"main_pallas_paged {name}: the pool exhausts at 65,536 pages")
+        c.check_no_errors()
+        want = {k: (f["expected_launches"] if k == kernel else 0) for k in rc.KERNELS}
+        want["joint_kernel"] = 0
+        bad = {k: f["launches"][k] for k, n in want.items() if f["launches"][k] != n}
+        if bad or f["leaders"] != MAIN_GROUPS:
+            raise AssertionError(f"main_pallas_paged {name}: launches {bad}, want {want}, "
+                                 f"{f['leaders']} leaders")
+        if paging and not f.get("paged_pool_in_use"):
+            raise AssertionError(f"main_pallas_paged {name}: the pool was never used")
+        emit(f"main_pallas_paged_{name}", **f)
+        runs[name] = f
+        if name.startswith("inkernel"):
+            timing[kernel] = time_round_kernel_paged(c, f"{kernel}_timing")
+        del c
+        torch.cuda.empty_cache()
+    digests = {name: f["digest"] for name, f in runs.items()}
+    emit("main_pallas_paged", digests=digests,
+         round_ms={name: f["round_ms"] for name, f in runs.items()},
+         carry_bytes_per_lane={name: f["carry_bytes_per_lane"] for name, f in runs.items()},
+         peak_mem_gb={name: f["peak_mem_gb"] for name, f in runs.items()})
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"main_pallas_paged: host_state digests differ: {digests}")
+    return runs, timing
+
+
+def time_round_kernel_paged(c, phase: str) -> dict:
+    """The paged build at the main path's shape (block 0's resident carry
+    and PagedLog, its 96-lane tiles) against round_kernel_ref, K=1 and K=8,
+    timed on raw launches (arguments packed once) beside the plain version
+    and the bytes bound: every input leaf read once and every output leaf
+    written once, the page table and the pool included."""
+    b = c.blocks[0]
+    diet = b._diet
+    m = b.metrics
+    args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    d = rc.dims_of(b.state, b.fab, b.v, b.paged)
+    cta = b._pallas_tile
+    plan = rc.paged_plan(b.paged)
+    kern = rc.KERNELS[rc.kernel_name(diet, True)]
+
+    def kw(kc):
+        return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True, do_tick=True,
+                    auto_propose=True, auto_compact_lag=12, paged=b.paged)
+
+    rows = {}
+    for kc in (1, 8):
+        ptrs, dims, flags, lag, outs = rc.pack(*args, **kw(kc))
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        go = raw_launch(kern, arr, nptr, cdims, flags, lag, target=rc.target(d, cta, diet, plan))
+        go()
+        want = plr.round_kernel_ref(*args, **kw(kc))
+        torch.cuda.synchronize()
+        bad = first_difference(carry_leaves(*outs[:4]) + paged_leaves(outs[4]),
+                               carry_leaves(*want[:4]) + paged_leaves(want[4]))
+        if bad is not None:
+            raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
+                                 f"first differing leaf {bad}")
+        pg_bytes = sum(x.nbytes for _, x in paged_leaves(b.paged) + paged_leaves(outs[4]))
+        nbytes = round_bytes(args, outs[:4]) + pg_bytes
+        ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+        rows[kc] = dict(max_abs_err=0, ms=ms, ms_per_round=ms / kc,
+                        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                        bytes=nbytes, paged_bytes=pg_bytes, rounds=kc,
+                        skipped_lanes=int((outs[4].skipped - b.paged.skipped).sum()))
+        if kc == 1:
+            rows[kc].update(
+                **round_occupancy(d, cta, diet, plan),
+                wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
+                plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
+            )
+        del go, outs, want
+    row = dict(rows[1], cta_lanes=cta, lanes=b.shape.n_lanes, k8=rows[8])
     emit(phase, **row)
     return row
 
@@ -964,12 +1266,24 @@ def main() -> int:
         torch.cuda.empty_cache()
     check_eager_diet(dev)
 
+    # the paged entry log: its kernels, the card against the CPU, and the
+    # paged main path against itself at the dispatch boundary and unpaged
+    check_round_kernel_paged(dev)
+    check_parity_paged()
+    paged_runs, paged_timing = check_main_paged(dev)
+    timing.update(paged_timing)
+    launches["round_kernel_paged"] = paged_runs["inkernel"]["launches"]["round_kernel_paged"]
+    launches["round_kernel_paged_diet"] = (
+        paged_runs["inkernel_diet"]["launches"]["round_kernel_paged_diet"])
+
     replaces = {
         "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
         "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
         "joint_kernel_vm": "raft_tpu/ops/quorum_pallas.py:120",
         "round_kernel": "raft_tpu/ops/pallas_round.py:564",
         "round_kernel_diet": "raft_tpu/ops/pallas_round.py:599",
+        "round_kernel_paged": "raft_tpu/ops/pallas_round.py:589",
+        "round_kernel_paged_diet": "raft_tpu/ops/pallas_round.py:589",
     }
     kernels = []
     for name in replaces:

@@ -39,6 +39,14 @@ class Shape:
     max_read_index: outstanding ReadIndex requests per lane ("R").
     max_entry_bytes: the largest entry payload the diet-v2 packed carry
       stores (its entry-size columns are int16).
+    page_window: the paged entry log's resident entries per lane ("W_res",
+      a power of two, 2 <= W_res < W); 0 -> min(8, W/2) at cluster
+      construction (ops/paged.py validate_page_plan).
+    page_entries: entries per pool page ("PE", a power of two <= W); 0 ->
+      min(4, page_window).
+    pool_pages: pages in the shared entry pool ("P", page 0 a reserved
+      trash row, ids uint16); 0 -> full provisioning, which never
+      exhausts.
     """
 
     n_lanes: int
@@ -48,6 +56,9 @@ class Shape:
     max_inflight: int = 8
     max_read_index: int = 4
     max_entry_bytes: int = 32767
+    page_window: int = 0
+    page_entries: int = 0
+    pool_pages: int = 0
 
     def __post_init__(self):
         if self.log_window & (self.log_window - 1):
@@ -78,6 +89,30 @@ class Shape:
                 "max_entry_bytes must be in 1..32767 (diet-v2 stores entry "
                 "size columns as int16)"
             )
+        # the paged entry log's geometry: each nonzero field on its own here,
+        # the plan across fields in ops/paged.py validate_page_plan
+        if self.page_window:
+            if self.page_window & (self.page_window - 1):
+                raise ValueError("page_window must be a power of two")
+            if not 2 <= self.page_window < self.log_window:
+                raise ValueError(
+                    "page_window must be in 2..log_window/2 (the paged "
+                    "resident window is a strict subset of log_window)"
+                )
+        if self.page_entries:
+            if self.page_entries & (self.page_entries - 1):
+                raise ValueError("page_entries must be a power of two")
+            if not 1 <= self.page_entries <= self.log_window:
+                raise ValueError(
+                    "page_entries must be in 1..log_window (a page never "
+                    "holds more than one window)"
+                )
+        if self.pool_pages:
+            if not 2 <= self.pool_pages <= (1 << 16):
+                raise ValueError(
+                    "pool_pages must be in 2..65536 (page ids are uint16 "
+                    "with page 0 reserved as the trash row)"
+                )
 
     @property
     def n(self) -> int:

@@ -65,6 +65,20 @@
 //   load and the store need no barrier and no index arithmetic. (A copy by
 //   the whole block, each leaf's chunk transposed through shared memory,
 //   made a one-round launch 3.7x slower: PERF.md, PR 3.)
+// - The paged build (-DRAFT_PAGED=1 with RAFT_WRES, RAFT_PE, RAFT_M: the
+//   paged entry log of ops/paged.py, paged in the kernel). A CUDA block
+//   is one allocation segment: its lanes' page tables address its own
+//   sub-pool of `pool_rows` rows (row 0 its trash row). The log leaves'
+//   device rows are the resident [W_res] tails; each thread rebuilds its
+//   lane's W ring columns from its tail, its page-table row and the
+//   sub-pool (page_in), the rounds run unchanged, and after the last one
+//   the block decides with one barrier whether any lane's last or
+//   snap_index moved. If none did (and E <= W_res) the tables and the
+//   sub-pool are copied through; else the block reallocates from scratch
+//   (page_out): each lane's page demand, an exclusive scan over the block
+//   (warp shuffles, one shared row of warp totals), its pages written,
+//   and every other row of the sub-pool zeroed, with ERR_PAGE_EXHAUSTED on
+//   a lane that did not fit. Built with and without RAFT_DIET.
 // - The commit index and vote tallies are per lane over its own [V]
 //   progress rows: raft::joint_committed / reduce_half<V> of quorum.cuh,
 //   shared with quorum.cu.
@@ -287,6 +301,13 @@
 #define RAFT_DIET 0
 #endif
 
+#ifndef RAFT_PAGED
+#define RAFT_PAGED 0
+#endif
+#if RAFT_PAGED && (!defined(RAFT_WRES) || !defined(RAFT_PE) || !defined(RAFT_M))
+#error "the paged build takes its geometry: -DRAFT_WRES= -DRAFT_PE= -DRAFT_M="
+#endif
+
 #if !defined(RAFT_V) || !defined(RAFT_W) || !defined(RAFT_E) || \
     !defined(RAFT_F) || !defined(RAFT_R) || !defined(RAFT_S)
 #error "build round.cu for one Shape and block: -DRAFT_V= -DRAFT_W= -DRAFT_E= -DRAFT_F= -DRAFT_R= -DRAFT_S="
@@ -311,6 +332,23 @@ constexpr int kMaxCta = 256;  // lanes (threads) per CUDA block
 // from a few base registers.
 constexpr int S = RAFT_S;
 static_assert(S >= 32 && S <= kMaxCta && S % 32 == 0, "S: a multiple of 32 <= kMaxCta");
+
+RAFT_HD constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x >> 1); }
+
+#if RAFT_PAGED
+// the paged entry log's geometry (ops/paged.py PagePlan)
+constexpr int WRES = RAFT_WRES;  // resident entries per lane
+constexpr int PE = RAFT_PE;      // entries per page
+constexpr int M = RAFT_M;        // page-table slots per lane
+constexpr int LPE = ilog2(PE);
+constexpr int KMAX = (W - WRES + PE - 1) / PE + 1;  // the most pages one lane needs
+static_assert(WRES >= 2 && WRES < W && (WRES & (WRES - 1)) == 0, "WRES: a power of two < W");
+static_assert(PE >= 1 && PE <= W && (PE & (PE - 1)) == 0, "PE: a power of two <= W");
+static_assert(M >= KMAX && (M & (M - 1)) == 0, "M: next_pow2(KMAX)");
+// allocator elision is sound only when every in-round log write lands in
+// the resident window (paged.py page_out_cond)
+constexpr bool kCanSkip = E <= WRES;
+#endif
 
 #define RAFT_COUNT(name, dt, shape) +1
 constexpr int kStateN = 0 RAFT_STATE_FIELDS(RAFT_COUNT);
@@ -345,8 +383,15 @@ enum : int {
   P_SAMP_INDEX_OUT = P_FAB_OUT + kFabN,
   P_SAMP_ROUND_OUT,
   P_PARTIALS,                      // [kc, n / cta, kPartialWidth] i32
-  kNumPtrs
+  P_PAGED_IN,                      // PagedLog leaves (PG_* order; paged
+  P_PAGED_OUT = P_PAGED_IN + 8,    // build, else null), in and out
+  kNumPtrs = P_PAGED_OUT + 8
 };
+
+// the PagedLog leaves (ops/paged.py LEAVES): pt [N, M] u16, the pool
+// columns [P, PE] in the log leaves' device types, four [N] i32 counters
+enum : int { PG_pt, PG_pool_term, PG_pool_type, PG_pool_bytes, PG_faults, PG_exhausted,
+             PG_dirty, PG_skipped };
 
 // flags
 enum : int {
@@ -396,6 +441,7 @@ constexpr int ERR_APPLIED_OUT_OF_RANGE = 16;
 constexpr int ERR_INDEX_NEAR_OVERFLOW = 32;
 constexpr int INDEX_OVERFLOW_MARGIN = 1 << 30;
 constexpr int ERR_DIET_OVERFLOW = 64;  // state.py: a value clamped at the diet boundary
+constexpr int ERR_PAGE_EXHAUSTED = 128;  // state.py: a lane's pages did not fit its pool
 constexpr int BIG = 2147483647;
 
 struct Args {
@@ -404,6 +450,7 @@ struct Args {
   int kc;     // rounds in this launch
   int flags;
   int lag;    // auto_compact_lag when F_LAG
+  long long pool_rows;  // pool rows per CUDA block (paged build), else 0
 };
 
 // ---------------------------------------------------------------------------
@@ -459,6 +506,12 @@ RAFT_FABRIC_DIET(RAFT_STORE_FAB)
 RAFT_HD constexpr bool through(int k) {
   return k == SL_is_learner || k == SL_learners_next || k == SL_auto_leave ||
          k == SL_pri_ctx || k == SL_pri_from;
+}
+
+// The log leaves of the paged build: their device rows are the resident
+// tails, moved by the paging phases, not by load_lane / store_lane.
+RAFT_HD constexpr bool paged_log(int k) {
+  return RAFT_PAGED && (k == SL_log_term || k == SL_log_type || k == SL_log_bytes);
 }
 
 struct Leaf {
@@ -533,12 +586,15 @@ struct Block {
   static constexpr long long fab_bytes = fab32_bytes + pad16((long long)kFab8 * sf);
   static constexpr long long acc0 = fab0 + 2 * fab_bytes;
   static constexpr long long acc_bytes = pad16(4LL * kPartUsed);
-  static constexpr long long bytes = acc0 + 2 * acc_bytes;
+  // the paged build's warp totals of its block scan
+  static constexpr long long scan0 = acc0 + 2 * acc_bytes;
+  static constexpr long long bytes = scan0 + (RAFT_PAGED ? pad16(4LL * (kMaxCta / 32)) : 0);
 
   // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
   RAFT_HD long long fab32(int b) const { return fab0 + b * fab_bytes; }
   RAFT_HD long long fab8(int b) const { return fab32(b) + fab32_bytes; }
   RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
+  RAFT_HD int *scan() const { return (int *)(base + scan0); }
 };
 
 template <typename ST>
@@ -829,7 +885,8 @@ RAFT_HD void load_leaf(Col<ST> &x, const Args &a, const Block &B, long long i, i
     pass_row<K, T, L::X>(a, i);
   } else {
     x = Col<ST>{ring_col<K, ST>(B) + t, B.sr};
-    row_to_col<T, L::X>((const T *)a.p[P_STATE_IN + K], i, x.p, B.sr);
+    if constexpr (!paged_log(K))
+      row_to_col<T, L::X>((const T *)a.p[P_STATE_IN + K], i, x.p, B.sr);
   }
 }
 template <int K, typename ST>
@@ -873,7 +930,7 @@ RAFT_HD void store_leaf(const CT (&x)[V], const Args &a, long long i) {
 template <int K, typename ST>
 RAFT_HD void store_leaf(const Col<ST> &x, const Args &a, long long i) {
   using L = StateLeaf<K, ST>;
-  if constexpr (!through(K))
+  if constexpr (!through(K) && !paged_log(K))
     col_to_row<typename L::T, L::X>((typename L::T *)a.p[P_STATE_OUT + K], i, x.p, x.s);
 }
 template <int K, typename ST>
@@ -2314,6 +2371,10 @@ struct Thread {
   Cfg c;
   Sampler samp;
   uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut)
+#if RAFT_PAGED
+  int pg_faults;         // pages of this lane's table mapped at page-in
+  int pg_last, pg_snap;  // last and snap_index at page-in
+#endif
 };
 
 // lane i (thread t of the block): its carry into registers and its rings'
@@ -2377,7 +2438,7 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
 RAFT_HD int *acc_row(const Block &B, int k) { return B.acc(k & 1); }
 
 // The launch's arguments from a C entry's (table order; dims: n, v, w, e,
-// f, r, kc, cta): false unless v..r are this library's Shape and the
+// f, r, kc, cta, pool rows per block (paged build, else 0)): false unless v..r are this library's Shape and the
 // block is a multiple of v that divides n and takes at most S lanes.
 RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int flags, int lag,
                      Args &a, int &cta) {
@@ -2385,11 +2446,17 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
       dims[4] != F || dims[5] != R || dims[7] < V || dims[7] > S || dims[7] % V ||
       dims[0] % dims[7] || dims[6] < 1)
     return false;
+#if RAFT_PAGED
+  if (dims[8] < KMAX + 1 || dims[8] > 65536) return false;
+#else
+  if (dims[8] != 0) return false;
+#endif
   for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
   a.n = dims[0];
   a.kc = (int)dims[6];
   a.flags = flags;
   a.lag = lag;
+  a.pool_rows = dims[8];
   cta = (int)dims[7];
   return true;
 }
@@ -2405,6 +2472,190 @@ RAFT_HD void write_partials(const Args &a, const Block &B, int k, long long blk,
     if (x < kPartUsed) acc[x] = 0;
   }
 }
+
+
+#if RAFT_PAGED
+// ---- ops/paged.py: the paged entry log of a lane ------------------------
+// The index math of page_in / page_out on the lane's stored values (the
+// ring columns hold them widened; the boundary has clamped them).
+
+RAFT_HD constexpr int pool_leaf(int k) {
+  return k == SL_log_term ? PG_pool_term : k == SL_log_type ? PG_pool_type : PG_pool_bytes;
+}
+
+// slot s of a log leaf's column from the pool: entry `ent` of the block's
+// sub-pool where `mapped`, else zero (page_in's fallback, paged.py:245-249)
+template <int K, typename ST>
+RAFT_HD void slot_from_pool(const Args &a, const Col<ST> &x, int s, bool mapped, long long ent) {
+  using T = typename StateLeaf<K, ST>::T;
+  x[s] = mapped ? (ST)((const T *)a.p[P_PAGED_IN + pool_leaf(K)])[ent] : (ST)0;
+}
+
+// the resident tail row over the column: entry ir of (lo_res, last] sits
+// in tail slot ir & (WRES - 1) and ring slot ir & (W - 1)
+template <int K, typename ST>
+RAFT_HD void tail_to_col(const Args &a, long long i, const Col<ST> &x, int last, int lo_res) {
+  using T = typename StateLeaf<K, ST>::T;
+  T e[WRES];
+  RowIO<T, WRES>::load((const T *)a.p[P_STATE_IN + K] + i * WRES, e);
+  RAFT_UNROLL
+  for (int r = 0; r < WRES; ++r) {
+    const int ir = last - ((last - r) & (WRES - 1));
+    if (ir > lo_res) x[ir & (W - 1)] = (ST)e[r];
+  }
+}
+
+// page_in (paged.py:222-258): lane i's W ring slots of the three log
+// leaves from its tail, its page-table row and its block's sub-pool
+// (rows [blk * pool_rows, (blk + 1) * pool_rows)); slots outside
+// (snap, last] are zero. Keeps the lane's mapped pages (the faults bump)
+// and its last / snap_index for the move test.
+RAFT_HD void lane_page_in(const Args &a, long long i, long long blk, Thread &th) {
+  Lane &L = th.L;
+  const int last = L.last, snap = L.snap_index;
+  const int lo_res = imax(snap, last - WRES);
+  const uint16_t *pt = (const uint16_t *)a.p[P_PAGED_IN + PG_pt] + i * M;
+  const long long seg = blk * a.pool_rows;
+  int mapped = 0;
+  RAFT_UNROLL
+  for (int m = 0; m < M; ++m) mapped += pt[m] > 0;
+  th.pg_faults = mapped;
+  th.pg_last = last;
+  th.pg_snap = snap;
+  RAFT_UNROLL
+  for (int s = 0; s < W; ++s) {
+    const int idx = last - ((last - s) & (W - 1));
+    const bool paged = idx > snap && idx <= lo_res;  // valid, not resident
+    const int page = paged ? (int)pt[(idx >> LPE) & (M - 1)] : 0;
+    const long long ent = (seg + page) * PE + (idx & (PE - 1));
+    slot_from_pool<SL_log_term>(a, L.log_term, s, page > 0, ent);
+    slot_from_pool<SL_log_type>(a, L.log_type, s, page > 0, ent);
+    slot_from_pool<SL_log_bytes>(a, L.log_bytes, s, page > 0, ent);
+  }
+  tail_to_col<SL_log_term>(a, i, L.log_term, last, lo_res);
+  tail_to_col<SL_log_type>(a, i, L.log_type, last, lo_res);
+  tail_to_col<SL_log_bytes>(a, i, L.log_bytes, last, lo_res);
+}
+
+// the resident tail of a column (paged.py _resident_tail, :261-284)
+template <int K, typename ST>
+RAFT_HD void col_to_tail(const Args &a, long long i, const Col<ST> &x, int last, int lo_res) {
+  using T = typename StateLeaf<K, ST>::T;
+  T e[WRES];
+  RAFT_UNROLL
+  for (int r = 0; r < WRES; ++r) {
+    const int ir = last - ((last - r) & (WRES - 1));
+    e[r] = ir > lo_res ? (T)x[ir & (W - 1)] : (T)0;
+  }
+  RowIO<T, WRES>::store((T *)a.p[P_STATE_OUT + K] + i * WRES, e);
+}
+
+// pool row `row` of a log leaf: entries key * PE + c in (snap, lo_res],
+// zeros elsewhere (paged.py:320-336)
+template <int K, typename ST>
+RAFT_HD void col_to_page(const Args &a, const Col<ST> &x, long long row, int key, int snap,
+                         int lo_res) {
+  using T = typename StateLeaf<K, ST>::T;
+  T e[PE];
+  RAFT_UNROLL
+  for (int c = 0; c < PE; ++c) {
+    const int ent = key * PE + c;
+    e[c] = ent > snap && ent <= lo_res ? (T)x[ent & (W - 1)] : (T)0;
+  }
+  RowIO<T, PE>::store((T *)a.p[P_PAGED_OUT + pool_leaf(K)] + row * PE, e);
+}
+
+// the pages the lane's paged range (snap, lo_res] needs, and its first key
+RAFT_HD int lane_need(const Lane &L, int &k_lo) {
+  const int snap = L.snap_index, lo_res = imax(snap, (int)L.last - WRES);
+  k_lo = (snap + 1) >> LPE;
+  return lo_res > snap ? (lo_res >> LPE) - k_lo + 1 : 0;
+}
+
+// page_out / page_out_cond (paged.py:287-384) of lane i, after the rounds:
+// its tail, its page-table row, its live pages and its counters. `moved`:
+// the block reallocates; page0: the lane's first page id (1 + the
+// exclusive scan of the block's needs). The block's rows no live page
+// writes are block_pool's.
+RAFT_HD void lane_page_out(const Args &a, long long i, long long blk, Thread &th, bool moved,
+                           int page0) {
+  Lane &L = th.L;
+  const int last = L.last, snap = L.snap_index;
+  const int lo_res = imax(snap, last - WRES);
+  const int *const *in = (const int *const *)(a.p + P_PAGED_IN);
+  int *const *out = (int *const *)(a.p + P_PAGED_OUT);
+  out[PG_faults][i] = in[PG_faults][i] + th.pg_faults;
+  col_to_tail<SL_log_term>(a, i, L.log_term, last, lo_res);
+  col_to_tail<SL_log_type>(a, i, L.log_type, last, lo_res);
+  col_to_tail<SL_log_bytes>(a, i, L.log_bytes, last, lo_res);
+  const uint16_t *pt_in = (const uint16_t *)a.p[P_PAGED_IN + PG_pt] + i * M;
+  uint16_t *pt_out = (uint16_t *)a.p[P_PAGED_OUT + PG_pt] + i * M;
+  if (!moved) {  // the skip branch: table and pool as they were
+    uint16_t e[M];
+    RowIO<uint16_t, M>::load(pt_in, e);
+    RowIO<uint16_t, M>::store(pt_out, e);
+    out[PG_exhausted][i] = in[PG_exhausted][i];
+    out[PG_dirty][i] = in[PG_dirty][i];
+    out[PG_skipped][i] = in[PG_skipped][i] + 1;
+    return;
+  }
+  int k_lo;
+  const int need = lane_need(L, k_lo);
+  const int n_alloc = imin(imax((int)a.pool_rows - page0, 0), need);
+  const bool exh = n_alloc < need;
+  if (exh) L.error_bits |= ERR_PAGE_EXHAUSTED;
+  // slot mm holds key k_lo + ((mm - k_lo) & (M - 1)), live below n_alloc
+  uint16_t e[M];
+  RAFT_UNROLL
+  for (int mm = 0; mm < M; ++mm) {
+    const int j = (mm - k_lo) & (M - 1);
+    e[mm] = (uint16_t)(j < n_alloc ? page0 + j : 0);
+  }
+  RowIO<uint16_t, M>::store(pt_out, e);
+  const long long seg = blk * a.pool_rows;
+  RAFT_UNROLL
+  for (int j = 0; j < KMAX; ++j) {
+    if (j >= n_alloc) break;
+    const long long row = seg + page0 + j;
+    col_to_page<SL_log_term>(a, L.log_term, row, k_lo + j, snap, lo_res);
+    col_to_page<SL_log_type>(a, L.log_type, row, k_lo + j, snap, lo_res);
+    col_to_page<SL_log_bytes>(a, L.log_bytes, row, k_lo + j, snap, lo_res);
+  }
+  out[PG_exhausted][i] = in[PG_exhausted][i] + (exh ? 1 : 0);
+  out[PG_dirty][i] = in[PG_dirty][i] + n_alloc;
+  out[PG_skipped][i] = in[PG_skipped][i];
+}
+
+template <typename T>
+RAFT_HD void pool_rows_part(const Args &a, int leaf, long long seg, long long end, bool copy,
+                            int tid, int nth) {
+  const T *src = (const T *)a.p[P_PAGED_IN + leaf] + seg * PE;
+  T *dst = (T *)a.p[P_PAGED_OUT + leaf] + seg * PE;
+  for (long long x = tid; x < a.pool_rows * PE; x += nth) {
+    const long long row = x / PE;
+    if (copy)
+      dst[x] = src[x];
+    else if (row == 0 || row >= end)
+      dst[x] = (T)0;
+  }
+}
+
+// the block's sub-pool rows no lane wrote (threads tid of nth): copied
+// through when the block skipped its allocator, else zeroed (the trash row
+// 0, and the rows from 1 + the block's total need on, which the scan left
+// unallocated)
+RAFT_HD void block_pool(const Args &a, long long blk, bool moved, int total_need, int tid,
+                        int nth) {
+  using TT = typename StateLeaf<SL_log_term, int32_t>::T;
+  using TY = typename StateLeaf<SL_log_type, int8_t>::T;
+  using TB = typename StateLeaf<SL_log_bytes, int32_t>::T;
+  const long long seg = blk * a.pool_rows;
+  const long long end = 1 + (long long)total_need;
+  pool_rows_part<TT>(a, PG_pool_term, seg, end, !moved, tid, nth);
+  pool_rows_part<TY>(a, PG_pool_type, seg, end, !moved, tid, nth);
+  pool_rows_part<TB>(a, PG_pool_bytes, seg, end, !moved, tid, nth);
+}
+#endif
 
 }  // namespace raft
 
@@ -2434,6 +2685,52 @@ __device__ __forceinline__ void add_events(const Events &ev, int *acc, int t, in
   if (leader && s) atomicAdd(&acc[C_LAT_SUM], s);
 }
 
+#if RAFT_PAGED
+// The exclusive prefix sum of x over the block's threads, and its total:
+// an inclusive scan within each warp by shuffles, then the warp totals
+// through one shared row (a block is one allocation segment, at most
+// kMaxCta lanes).
+__device__ __forceinline__ int block_exclusive_scan(int x, int *warp_tot, int t, int cta,
+                                                    int &total) {
+  const int live = cta - (t & ~31);
+  const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+  const int lane = t & 31, warp = t >> 5;
+  int v = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(mask, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31 || t == cta - 1) warp_tot[warp] = v;
+  __syncthreads();
+  int base = 0, sum = 0;
+  for (int w = 0; w * 32 < cta; ++w) {
+    const int s = warp_tot[w];
+    if (w < warp) base += s;
+    sum += s;
+  }
+  total = sum;
+  return base + v - x;
+}
+
+// page_out_cond for the block (paged.py:357-384): one barrier decides
+// whether any lane's last or snap_index moved since page-in; if so the
+// allocator runs (the block scan of the lanes' needs gives each its first
+// page), else the tables and the sub-pool are copied through
+__device__ __forceinline__ void page_out_block(const Args &a, const Block &B, long long blk,
+                                               long long i, int t, int cta, Thread &th) {
+  const bool moved =
+      !kCanSkip || __syncthreads_or(th.L.last != th.pg_last || th.L.snap_index != th.pg_snap);
+  int total = 0, page0 = 1;
+  if (moved) {
+    int k_lo;
+    page0 = 1 + block_exclusive_scan(lane_need(th.L, k_lo), B.scan(), t, cta, total);
+  }
+  lane_page_out(a, i, blk, th, moved, page0);
+  block_pool(a, blk, moved, total, t, cta);
+}
+#endif
+
 // blocks of this library that fit an SM's 228 KB of shared memory (1 KB of
 // it reserved per block): the register budget keeps that occupancy
 constexpr int kBlocksPerSm = imax(1, imin(8, (int)(233472 / (Block::bytes + 1024))));
@@ -2447,6 +2744,9 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
   for (int x = t; x < 2 * kPartUsed; x += cta) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
   Thread th;
   lane_load(a, B, i, t, th);
+#if RAFT_PAGED
+  lane_page_in(a, i, blk, th);
+#endif
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
   __syncthreads();  // every lane's outbox is in buffer 0
   for (int k = 0; k < a.kc; ++k) {
@@ -2458,6 +2758,9 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
     __syncthreads();
     if (metrics) write_partials(a, B, k, blk, gridDim.x, t, cta);
   }
+#if RAFT_PAGED
+  page_out_block(a, B, blk, i, t, cta, th);  // sets ERR_PAGE_EXHAUSTED before the store
+#endif
   lane_store(a, B, a.kc & 1, i, t, th);  // the last round wrote buffer kc % 2
 }
 
@@ -2477,7 +2780,7 @@ cudaError_t enable_smem() {
 
 // ptrs: kNumPtrs device pointers in table order; dims: n, v, w, e, f, r,
 // kc, cta (lanes per CUDA block: a multiple of v that divides n, at most
-// S). v..r must be the Shape this library was built for. Launches on
+// S), pool rows per block (the paged build's allocation segment, else 0). v..r must be the Shape this library was built for. Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int raft_round(void *const *ptrs, int nptrs, const long long *dims,
                           int flags, int lag, void *stream) {
@@ -2528,7 +2831,12 @@ int round_host(const Args &a, int cta) {
   std::vector<Thread> th(cta);
   for (long long blk = 0; blk < n_blocks; ++blk) {
     for (int x = 0; x < 2 * kPartUsed; ++x) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
-    for (int t = 0; t < cta; ++t) lane_load(a, B, blk * cta + t, t, th[t]);
+    for (int t = 0; t < cta; ++t) {
+      lane_load(a, B, blk * cta + t, t, th[t]);
+#if RAFT_PAGED
+      lane_page_in(a, blk * cta + t, blk, th[t]);
+#endif
+    }
     for (int k = 0; k < a.kc; ++k) {
       int *acc = acc_row(B, k);
       for (int t = 0; t < cta; ++t) {
@@ -2542,6 +2850,21 @@ int round_host(const Args &a, int cta) {
       if (metrics)
         for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
     }
+#if RAFT_PAGED
+    // page_out_block, its barrier and scan as loops over the block's lanes
+    bool moved = !kCanSkip;
+    for (int t = 0; t < cta; ++t)
+      moved = moved || th[t].L.last != th[t].pg_last || th[t].L.snap_index != th[t].pg_snap;
+    int total = 0;
+    std::vector<int> page0(cta, 1);
+    for (int t = 0; moved && t < cta; ++t) {
+      int k_lo;
+      page0[t] = 1 + total;
+      total += lane_need(th[t].L, k_lo);
+    }
+    for (int t = 0; t < cta; ++t) lane_page_out(a, blk * cta + t, blk, th[t], moved, page0[t]);
+    block_pool(a, blk, moved, total, 0, 1);
+#endif
     for (int t = 0; t < cta; ++t) lane_store(a, B, a.kc & 1, blk * cta + t, t, th[t]);
   }
   return 0;
@@ -2570,3 +2893,13 @@ extern "C" long long raft_round_smem() { return raft::Block::bytes; }
 
 // 1 for the diet-v2 build (the packed carry in device memory), else 0.
 extern "C" int raft_round_diet() { return RAFT_DIET; }
+
+// The paged build's geometry {1, WRES, PE, M}, or {0, 0, 0, 0}.
+extern "C" void raft_round_paged(long long *out) {
+#if RAFT_PAGED
+  const long long g[4] = {1, raft::WRES, raft::PE, raft::M};
+#else
+  const long long g[4] = {0, 0, 0, 0};
+#endif
+  for (int x = 0; x < 4; ++x) out[x] = g[x];
+}

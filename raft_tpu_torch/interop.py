@@ -10,7 +10,11 @@ fields hold no leaf, exactly as `jax.tree.leaves` skips them.
 
 Leaves keep their dtypes both ways, so a diet-v2 packed carry (uint16,
 int16 and int8 columns, uint8/16/32 bitset words) comes across packed.
-This module imports no JAX: the caller turns JAX arrays into numpy.
+A dataclass field marked `metadata={"static": True}` holds no leaf, as a
+meta field of a JAX registered dataclass holds none (the paged log's `w`
+and `w_res`: ops/paged.py PagedLog); `from_numpy_tree` takes it as a
+keyword. This module imports no JAX: the caller turns JAX arrays into
+numpy.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ def _children(cls):
     NamedTuple, in order."""
     hints = typing.get_type_hints(cls)
     names = (
-        [f.name for f in dataclasses.fields(cls)]
+        [f.name for f in dataclasses.fields(cls) if not f.metadata.get("static")]
         if dataclasses.is_dataclass(cls)
         else list(cls._fields)
     )
@@ -60,19 +64,20 @@ def to_numpy_leaves(obj) -> list[np.ndarray]:
     return [np.asarray(obj)]
 
 
-def from_numpy_tree(cls, leaves, device):
-    """Build a `cls` object from `leaves` in field order. Trailing fields
-    that have a default take it when the leaves run out (the optional
-    planes of the JAX state are None and hold no leaf)."""
+def from_numpy_tree(cls, leaves, device, **static):
+    """Build a `cls` object from `leaves` in field order, its static fields
+    from `static`. Trailing fields that have a default take it when the
+    leaves run out (the optional planes of the JAX state are None and hold
+    no leaf)."""
     it = list(leaves)
-    obj, rest = _build(cls, it, torch.device(device))
+    obj, rest = _build(cls, it, torch.device(device), static)
     if rest:
         raise ValueError(f"{len(rest)} leaves left over building {cls.__name__}")
     return obj
 
 
-def _build(cls, leaves, device):
-    kw = {}
+def _build(cls, leaves, device, static=None):
+    kw = dict(static or {})
     defaults = _defaults(cls)
     for name, nested in _children(cls):
         if nested is not None:

@@ -10,6 +10,9 @@ Snapshot schema, as in the JAX package:
 
 from __future__ import annotations
 
+import logging
+import time
+
 import numpy as np
 
 from raft_tpu_torch.metrics.device import COUNTERS, HIST_EDGES, N_BUCKETS
@@ -91,3 +94,42 @@ def merge_snapshots(snaps) -> dict:
         h["count"] += int(s["hist"]["count"])
         out["rounds"] = max(out["rounds"], int(s["rounds"]))
     return out
+
+
+# The paged entry log's counters (host plane): computed from the sidecar by
+# FusedCluster.paged_stats at host sync points, never per dispatch.
+#   paged_pool_in_use    gauge: pool pages mapped by any lane's table
+#   paged_page_faults    pages gathered from the pool at page_in
+#   paged_exhausted      page_out clamp events (lane x pass); nonzero means
+#                        ERR_PAGE_EXHAUSTED is set on some lane
+#   paged_pages_dirty    pages the allocator wrote back
+#   paged_alloc_skipped  allocator passes elided by page_out_cond
+PAGED_COUNTERS = (
+    "paged_pool_in_use",
+    "paged_page_faults",
+    "paged_exhausted",
+    "paged_pages_dirty",
+    "paged_alloc_skipped",
+)
+
+# the latest paged_stats snapshot, as levels (re-recording one is idempotent)
+PAGED_EVENTS = {name: 0 for name in PAGED_COUNTERS}
+_LOG = logging.getLogger(__name__)
+_WARNED_AT = {}
+
+
+def record_paged_stats(stats: dict) -> None:
+    """Mirror one ops/paged.py paged_stats snapshot onto PAGED_EVENTS, and
+    warn (at most once a minute) when the pool has clamped lanes."""
+    for name in PAGED_COUNTERS:
+        PAGED_EVENTS[name] = int(stats.get(name, 0))
+    exhausted = int(stats.get("paged_exhausted", 0))
+    now = time.monotonic()
+    if exhausted and now - _WARNED_AT.get("paged_exhausted", -60.0) >= 60.0:
+        _WARNED_AT["paged_exhausted"] = now
+        _LOG.warning(
+            "paged entry pool exhausted: %d lane-dispatch clamp events so far "
+            "(ERR_PAGE_EXHAUSTED set on the affected lanes; raise "
+            "Shape.pool_pages — pool holds %d pages)",
+            exhausted, int(stats.get("paged_pool_pages", 0)),
+        )

@@ -15,10 +15,12 @@ commit-index reduction through the hand-written CUDA kernel on the card
 (ops/quorum.py joint_committed -> csrc/quorum.cu joint_kernel). The carry is
 updated functionally (new tensors each round); nothing is written in place.
 
-Of the JAX round's optional planes metrics and the diet-v2 packed carry
+Of the JAX round's optional planes metrics, the diet-v2 packed carry
 (`diet=True`: state.pack_state / pack_fabric between dispatches, and
-store_carry / load_carry around every round) are ported; chaos, paged,
-lease, trace, tier, straddle and fused_ids are not (ROADMAP).
+store_carry / load_carry around every round) and the paged entry log
+(`paged=True`, ops/paged.py: a resident tail plus a page pool between
+dispatches, or with `paged_inkernel=True` around every round) are ported;
+chaos, lease, trace, tier, straddle and fused_ids are not (ROADMAP).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from raft_tpu_torch.metrics import device as metmod
 from raft_tpu_torch.metrics.host import CounterAccumulator
 from raft_tpu_torch.ops import log as lg
 from raft_tpu_torch.ops import onehot as ohm
+from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import progress as pg
 from raft_tpu_torch.ops import quorum as qr
 from raft_tpu_torch.ops import step as stepmod
@@ -66,7 +69,7 @@ NONE = int(MT.MSG_NONE)
 
 # Planes of the JAX round that this package does not have yet.
 PLANES_NOT_PORTED = (
-    "chaos", "paged", "lease", "trace", "tier", "straddle", "fused_ids",
+    "chaos", "lease", "trace", "tier", "straddle", "fused_ids",
 )
 
 
@@ -1203,17 +1206,33 @@ def fused_rounds(
     auto_propose: bool = False,
     auto_compact_lag: int | None = None,
     ops_first_round_only: bool = True,
+    paged_inkernel: bool = False,
     metrics: metmod.MetricsState | None = None,
+    paged: pgmod.PagedLog | None = None,
 ):
     """n_rounds fused rounds (raft_tpu/ops/fused.py fused_rounds without the
-    straddle, chaos, trace and paged planes). `ops` applies to the first
-    round only unless ops_first_round_only=False. The carry enters and
-    leaves in the slim storage dtypes, or packed when it comes packed
+    straddle, chaos and trace planes). `ops` applies to the first round
+    only unless ops_first_round_only=False. The carry enters and leaves in
+    the slim storage dtypes, or packed when it comes packed
     (state.is_packed); each round widens to int32, routes, computes and
     narrows back across the same boundary (store_carry / load_carry when
-    packed). Returns (state, fab) or (state, fab, metrics)."""
+    packed).
+
+    paged: the paged entry log's sidecar (ops/paged.py); the state then
+    holds the resident [N, W_res] tail, the full window is paged in after
+    the store boundary, the rounds run on it unchanged, and it is paged out
+    at the exit in place of the stale-slot scrub. With paged_inkernel
+    (the twin of the pallas engine's in-kernel paging) page_in and
+    page_out_cond run around every round instead, on the stored carry.
+    Returns (state, fab[, metrics][, paged])."""
     load, store = carry_boundary(state)
     state, fab = store(state, fab)
+    inkernel = paged is not None and paged_inkernel
+    # allocator elision is sound only when every in-round log write lands
+    # in the resident window (pgmod.page_out_cond)
+    can_skip = inkernel and fab.rep.ent_term.shape[-1] <= paged.w_res
+    if paged is not None and not inkernel:
+        state, paged = pgmod.page_in(state, paged)
     peer_mute = aligned_peer_mute(mute, v) if mute is not None else None
     zero_ops = None
     for i in range(n_rounds):
@@ -1222,6 +1241,9 @@ def fused_rounds(
             if zero_ops is None:
                 zero_ops = LocalOps(*(torch.zeros_like(x) for x in ops))
             o = zero_ops
+        if inkernel:
+            state, paged = pgmod.page_in(state, paged)
+            last_pre, snap_pre = state.last.to(I32), state.snap_index.to(I32)
         st_fat, fb_fat = load(state, fab)
         inb = route_fabric(fb_fat, v, mute, peer_mute=peer_mute)
         res = fused_round(
@@ -1238,11 +1260,20 @@ def fused_rounds(
         state, fab = store(res[0], res[1])
         if metrics is not None:
             metrics = res[2]
-    # the JAX package leaves the same canonical zeros-outside-window layout
-    state = lg.scrub_stale_slots(state)
-    if metrics is None:
-        return state, fab
-    return state, fab, metrics
+        if inkernel:
+            state, paged = pgmod.page_out_cond(state, paged, last_pre, snap_pre,
+                                               can_skip=can_skip)
+    if paged is not None and not inkernel:
+        state, paged = pgmod.page_out(state, paged)
+    elif paged is None:
+        # the JAX package leaves the same canonical zeros-outside-window layout
+        state = lg.scrub_stale_slots(state)
+    out = (state, fab)
+    if metrics is not None:
+        out += (metrics,)
+    if paged is not None:
+        out += (paged,)
+    return out
 
 
 class FusedCluster:
@@ -1254,7 +1285,12 @@ class FusedCluster:
     package). diet: keep the carry in the diet-v2 packed layout between
     dispatches (state.pack_state / pack_fabric; off by default, as
     RAFT_TPU_DIET is in the JAX package), with the automatic rebase that
-    keeps its uint16 index columns under DIET_REBASE_AT. engine: "xla"
+    keeps its uint16 index columns under DIET_REBASE_AT. paged: keep a
+    resident tail of Shape.page_window entries per lane and the rest of
+    the window in a page pool (ops/paged.py; off by default, as
+    RAFT_TPU_PAGED is); paged_inkernel: page around every round instead of
+    every dispatch (on the pallas engine one allocation segment per lane
+    tile, the tile pinned here). engine: "xla"
     (default: the eager round of this module) or "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
     kernel; tile_lanes, default pallas_round.default_tile, and
     rounds_per_call K, default 1, are checked here and raise TileError /
@@ -1271,6 +1307,8 @@ class FusedCluster:
         device=None,
         metrics: bool = True,
         diet: bool = False,
+        paged: bool = False,
+        paged_inkernel: bool = False,
         engine: str | None = None,
         tile_lanes: int | None = None,
         rounds_per_call: int | None = None,
@@ -1326,9 +1364,26 @@ class FusedCluster:
         # (no fallback to "xla")
         self.engine = plr.resolve_engine(engine)
         self._pallas_tile = self._pallas_rounds = None
+        self._paged_inkernel = bool(paged and paged_inkernel)
         if self.engine == "pallas":
             self._pallas_rounds = self._resolve_pallas_rounds(rounds_per_call)
             self._pallas_tile = self._resolve_pallas_tile(tile_lanes)
+        # the paged entry log: the plan is checked here (raise, never fall
+        # back) and the full-window carry split into its resident tail and
+        # the pool. _paged_segs is the allocation segments the host views
+        # read the page ids under: 1, or one per lane tile when the pallas
+        # engine pages in the kernel.
+        self.paged = None
+        self._page_plan = None
+        self._paged_segs = 1
+        if paged:
+            self._page_plan = pgmod.validate_page_plan(self.shape, n)
+            if self._paged_inkernel and self.engine == "pallas":
+                self._paged_segs = n // self._pallas_tile
+                pgmod.check_pool_segments(self._page_plan, self._paged_segs)
+            self.state, self.paged = pgmod.split_state(
+                self.state, self._page_plan, self._paged_segs
+            )
 
     def run(
         self,
@@ -1348,7 +1403,9 @@ class FusedCluster:
             auto_propose=auto_propose,
             auto_compact_lag=auto_compact_lag,
             ops_first_round_only=ops_first_round_only,
+            paged_inkernel=self._paged_inkernel,
             metrics=self.metrics,
+            paged=self.paged,
         )
         ops = self._no_ops if ops is None else ops
         if self.engine == "pallas":
@@ -1358,6 +1415,8 @@ class FusedCluster:
         self.state, self.fab = res[0], res[1]
         if self.metrics is not None:
             self.metrics = res[2]
+        if self.paged is not None:
+            self.paged = res[-1]
 
     # -- pallas engine (ops/pallas_round.py) ------------------------------
 
@@ -1371,13 +1430,23 @@ class FusedCluster:
         )
 
     def _resolve_pallas_tile(self, tile_lanes: int | None) -> int:
-        """The lane tile: tile_lanes, else default_tile; TileError if it
-        breaks the group alignment."""
+        """The lane tile: tile_lanes, else default_tile (under in-kernel
+        paging the engine's CUDA block, which is the tile there:
+        pallas_round.paged_tile); TileError if it breaks the group
+        alignment, or, in-kernel paging on the card, if the kernel cannot
+        run it as one CUDA block."""
         from raft_tpu_torch.ops import pallas_round as plr
 
         n = self.shape.n_lanes
-        t = tile_lanes if tile_lanes is not None else plr.default_tile(n, self.v)
+        if tile_lanes is not None:
+            t = tile_lanes
+        elif self._paged_inkernel:
+            t = plr.paged_tile(self.shape)
+        else:
+            t = plr.default_tile(n, self.v)
         plr.check_tile(n, self.v, t)
+        if self._paged_inkernel and self.device.type == "cuda":
+            plr.check_paged_block(self.shape, t)
         return t
 
     def _resolve_pallas_rounds(self, rounds_per_call: int | None) -> int:
@@ -1424,10 +1493,17 @@ class FusedCluster:
         unpacked around it and packed again."""
         mj = torch.as_tensor(mask, device=self.device)
         dj = torch.as_tensor(deltas, device=self.device)
-        st = slim_state(lg.rebase_indexes(unpack_state(self.state), mj, dj))
+        carry = self.state
+        if self.paged is not None:
+            # the deltas are window-aligned, not page-key aligned: rebase the
+            # full window, and let page_out's allocator rebuild the pool
+            carry, self.paged = pgmod.page_in_host(carry, self.paged, self._paged_segs)
+        st = slim_state(lg.rebase_indexes(unpack_state(carry), mj, dj))
         fb = slim_fabric(rebase_fabric(fat_fabric(unpack_fabric(self.fab)), dj))
         if is_packed(self.state):
             st, fb = pack_state(st), pack_fabric(fb)
+        if self.paged is not None:
+            st, self.paged = pgmod.page_out_host(st, self.paged, self._paged_segs)
         self.state, self.fab = st, fb
         # the index space moved under the headroom counter: re-read it
         self._diet_budget = 0
@@ -1471,14 +1547,22 @@ class FusedCluster:
 
     def host_state(self) -> RaftState:
         """The carry as host readers see it: slim dtypes, absolute int32
-        index columns, [N, V] bool masks, whether or not it is packed
-        (self.state may be diet-v2 packed)."""
-        return unpack_state(self.state)
+        index columns, [N, V] bool masks and the full [N, W] log window,
+        whether or not it is packed or paged (self.state may be diet-v2
+        packed, and under paging holds the resident tail)."""
+        carry = self.state
+        if self.paged is not None:
+            carry = pgmod.page_in_view(carry, self.paged, self._paged_segs)
+        return unpack_state(carry)
 
     def adopt_state(self, st: RaftState):
-        """Install a host-built (slim or fat) state as the carry, packed
-        when the current carry is: the write-side twin of host_state."""
-        self.state = pack_state(st) if is_packed(self.state) else slim_state(st)
+        """Install a host-built (slim or fat, full-window) state as the
+        carry, packed when the current carry is and split again under
+        paging: the write-side twin of host_state."""
+        st = pack_state(st) if is_packed(self.state) else slim_state(st)
+        if self.paged is not None:
+            st, self.paged = pgmod.page_out_host(st, self.paged, self._paged_segs)
+        self.state = st
 
     def ops(self, **kw) -> LocalOps:
         """A LocalOps with the given per-lane columns set ({lane: value}
@@ -1505,7 +1589,23 @@ class FusedCluster:
             m.counters.cpu().numpy(), m.hist.cpu().numpy(),
             int(m.lat_sum), int(m.round_ctr),
         )
-        return self._metrics_acc.snapshot()
+        snap = self._metrics_acc.snapshot()
+        # the paged pool's pressure rides the same snapshot
+        snap["counters"].update(self.paged_stats() or {})
+        return snap
+
+    def paged_stats(self) -> dict | None:
+        """Pool occupancy and the paged counters' sums (ops/paged.py
+        paged_stats; None without paging), mirrored onto the host plane
+        (metrics/host.py PAGED_COUNTERS). One device read: call it at host
+        sync points, not per dispatch."""
+        if self.paged is None:
+            return None
+        from raft_tpu_torch.metrics.host import record_paged_stats
+
+        stats = pgmod.paged_stats(self.paged)
+        record_paged_stats(stats)
+        return stats
 
     def leader_lanes(self) -> np.ndarray:
         return np.nonzero(self.state.state.cpu().numpy() == int(StateType.LEADER))[0]
@@ -1518,5 +1618,7 @@ class FusedCluster:
 
     def check_no_errors(self):
         bits = self.state.error_bits.cpu().numpy()
+        if self.paged is not None and (bits & pgmod.ERR_PAGE_EXHAUSTED).any():
+            self.paged_stats()  # the exhaustion counter and its warning first
         if (bits != 0).any():
             raise AssertionError(f"error_bits set: lanes {np.nonzero(bits)[0].tolist()}")

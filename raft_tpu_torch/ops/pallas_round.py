@@ -28,10 +28,20 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   boundary between in-kernel rounds and leaves packed, through the
   fused.store_carry / load_carry pair the eager engine crosses; on the
   card it runs the kernel's diet build (round_cuda.target(diet=True)).
+- Paged (ops/paged.py): host-boundary mode pages the whole window in
+  before the launches and out after them, in plain PyTorch on the device,
+  and the kernel runs on the full window as ever. In-kernel mode
+  (paged_inkernel) hands the resident tails and the PagedLog to the
+  kernel's paged build: each lane tile is one allocation segment with its
+  own sub-pool and is paged in at the top of a launch and out (with the
+  allocator skipped where no lane moved) at its end. On the card a tile is
+  one CUDA block (`check_paged_block`: at most MAX_CTA lanes and within
+  MAX_SMEM, TileError otherwise); the default tile there is the engine's
+  CUDA block (`paged_tile`).
 
-Not carried over from the JAX engine: the chaos, trace and paged planes
-(they raise NotImplementedError at FusedCluster construction, as on the
-eager path), the Mosaic (tile, K) autotune sweep, interpret mode,
+Not carried over from the JAX engine: the chaos and trace planes (they
+raise NotImplementedError at FusedCluster construction, as on the eager
+path), the Mosaic (tile, K) autotune sweep, interpret mode,
 and the engine fallback: a build or launch failure raises, and
 engine="pallas" never becomes "xla" on its own. The port reads no
 environment variables: the engine, tile and K are constructor arguments.
@@ -46,6 +56,7 @@ import torch
 from raft_tpu_torch.metrics import device as metmod
 from raft_tpu_torch.ops import fused as fmod
 from raft_tpu_torch.ops import log as lgmod
+from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import round_cuda
 
 I32 = torch.int32
@@ -138,6 +149,37 @@ def default_tile(n: int, v: int) -> int:
     return best if best is not None else cands[0]
 
 
+def _shape_dims(shape) -> dict:
+    return {"v": shape.max_peers, "w": shape.log_window, "e": shape.max_msg_entries,
+            "f": shape.max_inflight, "r": shape.max_read_index}
+
+
+def paged_tile(shape) -> int:
+    """The default tile under in-kernel paging: the CUDA block the engine
+    would pick for the batch (round_cuda.cta_lanes), since on the card the
+    tile is one CUDA block."""
+    return round_cuda.cta_lanes(shape.n_lanes, shape.max_peers, _shape_dims(shape))
+
+
+def check_paged_block(shape, tile_lanes: int) -> None:
+    """In-kernel paging on the card runs each tile as one CUDA block (one
+    allocation segment, one block scan): TileError, naming the limit, for a
+    tile the kernel cannot run so."""
+    if tile_lanes > round_cuda.MAX_CTA:
+        raise TileError(
+            f"tile_lanes={tile_lanes} exceeds MAX_CTA={round_cuda.MAX_CTA}: in-kernel "
+            "paging on the card runs each lane tile as one CUDA block"
+        )
+    d = _shape_dims(shape)
+    smem = round_cuda.smem_bytes(d, tile_lanes, paged=True)
+    if smem > round_cuda.MAX_SMEM:
+        raise TileError(
+            f"tile_lanes={tile_lanes} at {round_cuda.shape_name(d)} needs {smem} bytes of "
+            f"shared memory, over MAX_SMEM={round_cuda.MAX_SMEM}: in-kernel paging on the "
+            "card runs each lane tile as one CUDA block"
+        )
+
+
 # --------------------------------------------------------------------------
 # the kernel's plain version
 
@@ -145,6 +187,7 @@ def default_tile(n: int, v: int) -> int:
 def round_kernel_ref(
     state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops=True,
     ops_round0_only=True, do_tick=True, auto_propose=False, auto_compact_lag=None,
+    paged=None,
 ):
     """What one launch of csrc/round.cu computes, in plain PyTorch: kc
     rounds of route_fabric -> fused_round on the carry, its storage
@@ -152,9 +195,13 @@ def round_kernel_ref(
     the diet-v2 store_carry / load_carry pair) replayed between rounds,
     ops applied (when apply_ops) in round 0 only or in every round, and
     with metrics on (sampler given) fresh zeroed delta slots each round,
-    one row per run of `cta` lanes. Returns
+    one row per run of `cta` lanes. With `paged` (the paged build: the
+    state's log leaves are resident tails) each run of `cta` lanes is an
+    allocation segment: page_in on the stored carry at the top, the rounds
+    on the full window, and page_out_cond after the last store, as
+    raft_tpu/ops/pallas_round.py:589-597 and :707-725 order them. Returns
     (state, fab, sampler, partials [kc, n / cta, PARTIAL_WIDTH] or None),
-    as round_cuda.round_call does."""
+    and the PagedLog when paged, as round_cuda.round_call does."""
     n = state.term.shape[0]
     dev = state.term.device
     rows = n // cta
@@ -169,6 +216,10 @@ def round_kernel_ref(
         )
     load, store = fmod.carry_boundary(state)
     st, fb = store(state, fab)
+    segs = n // cta
+    if paged is not None:
+        st, paged = pgmod.page_in(st, paged, segs)
+        last_pre, snap_pre = st.last.to(I32), st.snap_index.to(I32)
     parts = []
     for k in range(kc):
         if mt is not None:
@@ -190,9 +241,15 @@ def round_kernel_ref(
             mt = res[2]
             row = torch.cat([mt.counters, mt.hist, mt.lat_sum[:, None]], dim=1)
             parts.append(torch.nn.functional.pad(row, (0, PARTIAL_WIDTH - row.shape[1])))
-    if mt is None:
-        return st, fb, None, None
-    return st, fb, (mt.samp_index, mt.samp_round), torch.stack(parts)
+    out = (st, fb, None, None)
+    if mt is not None:
+        out = (st, fb, (mt.samp_index, mt.samp_round), torch.stack(parts))
+    if paged is None:
+        return out
+    can_skip = fab.rep.ent_term.shape[-1] <= paged.w_res
+    st, paged = pgmod.page_out_cond(out[0], paged, last_pre, snap_pre, can_skip=can_skip,
+                                    segs=segs)
+    return (st,) + out[1:] + (paged,)
 
 
 # --------------------------------------------------------------------------
@@ -231,36 +288,64 @@ def pallas_rounds(
     auto_propose: bool = False,
     auto_compact_lag: int | None = None,
     ops_first_round_only: bool = True,
+    paged_inkernel: bool = False,
     metrics: metmod.MetricsState | None = None,
+    paged: pgmod.PagedLog | None = None,
 ):
     """n_rounds fused rounds as launches of K = rounds_per_call rounds each,
     plus one remainder launch when K does not divide n_rounds. Same
     contract and trajectory as ops/fused.py fused_rounds (module doc).
-    Returns (state, fab) or (state, fab, metrics)."""
+    Returns (state, fab[, metrics][, paged])."""
     validate_round_plan(rounds_per_call)
     state, fab = fmod.carry_boundary(state)[1](state, fab)
+    inkernel = paged is not None and paged_inkernel
+    if paged is not None and not inkernel:
+        state, paged = pgmod.page_in(state, paged)
     n = state.term.shape[0]
     check_tile(n, v, tile_lanes)
-    cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v))
+    if inkernel:
+        n_tiles = n // tile_lanes
+        if paged.pool_term.shape[0] % n_tiles:
+            raise TileError(
+                f"pool_pages={paged.pool_term.shape[0]} does not divide "
+                f"into {n_tiles} tiles of {tile_lanes} lanes: in-kernel "
+                "paging slices the pool per grid step (segment-local "
+                "allocation); pin RAFT_TPU_POOL_PAGES / "
+                "RAFT_TPU_PALLAS_TILE so the pool splits evenly"
+            )
+        # one tile is one allocation segment, and on the card one CUDA block
+        cta = tile_lanes
+    else:
+        cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v))
 
     kc = max(1, min(rounds_per_call, n_rounds)) if n_rounds else 1
     n_full, rem = divmod(n_rounds, kc)
     calls = [kc] * n_full + ([rem] if rem else [])
     for i, k in enumerate(calls):
         sampler = (metrics.samp_index, metrics.samp_round) if metrics is not None else None
-        state, fab, sampler, parts = round_cuda.round_call(
+        out = round_cuda.round_call(
             state, fab, ops, mute, sampler,
             metrics.round_ctr if metrics is not None else None,
             v=v, kc=k, cta=cta,
             apply_ops=i == 0 or not ops_first_round_only,
             ops_round0_only=ops_first_round_only,
             do_tick=do_tick, auto_propose=auto_propose,
-            auto_compact_lag=auto_compact_lag,
+            auto_compact_lag=auto_compact_lag, paged=paged if inkernel else None,
         )
+        if inkernel:
+            state, fab, sampler, parts, paged = out
+        else:
+            state, fab, sampler, parts = out
         if metrics is not None:
             metrics = fold_partials(metrics, sampler, parts, k)
-    # the canonical zeros-outside-window layout, as fused_rounds leaves it
-    state = lgmod.scrub_stale_slots(state)
-    if metrics is None:
-        return state, fab
-    return state, fab, metrics
+    if paged is not None and not inkernel:
+        state, paged = pgmod.page_out(state, paged)
+    elif paged is None:
+        # the canonical zeros-outside-window layout, as fused_rounds leaves it
+        state = lgmod.scrub_stale_slots(state)
+    res = (state, fab)
+    if metrics is not None:
+        res += (metrics,)
+    if paged is not None:
+        res += (paged,)
+    return res

@@ -6,14 +6,19 @@ version (ops/pallas_round.py `round_kernel_ref`); for tensors on the card it
 checks every leaf's device, dtype, shape and contiguity, launches the kernel
 on the current stream, and raises on anything the kernel does not take or on
 a refused launch. There is no fallback from the card to the plain version.
-The launches are counted in `KERNELS["round_kernel"].launches`, and those
-of the diet-v2 build (a packed carry, state.is_packed) in
-`KERNELS["round_kernel_diet"].launches`.
+The launches are counted in `KERNELS["round_kernel"].launches`, those of
+the diet-v2 build (a packed carry, state.is_packed) in
+`KERNELS["round_kernel_diet"].launches`, and those of the paged builds (a
+`paged=` sidecar: in-kernel paging) in `round_kernel_paged` and
+`round_kernel_paged_diet`.
 
-| kernel             | replaces (raft_tpu/ops/pallas_round.py)                 |
-| round_kernel       | make_call(kc).kernel :564, pl.pallas_call :745          |
-| round_kernel_diet  | the same, its packed-carry branch :599-603, :655-660,   |
-|                    | :707-710                                                |
+| kernel                  | replaces (raft_tpu/ops/pallas_round.py)            |
+| round_kernel            | make_call(kc).kernel :564, pl.pallas_call :745     |
+| round_kernel_diet       | the same, its packed-carry branch :599-603,        |
+|                         | :655-660, :707-710                                 |
+| round_kernel_paged      | the same, its in-kernel paging branch :589-597,    |
+|                         | :711-725                                           |
+| round_kernel_paged_diet | the paging branch on the packed carry              |
 
 The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
@@ -28,7 +33,14 @@ block size and layout builds its library (`target`), and a Shape the
 kernel does not take, or a library that does not build, raises naming the
 Shape. A packed carry never runs the slim build. `smem_bytes` is
 csrc/round.cu's Block: the shared memory a CUDA block takes (the same in
-both builds), which bounds its lane count (`cta_lanes`).
+the slim and diet builds; the paged builds add one row of warp totals),
+which bounds its lane count (`cta_lanes`).
+
+Paged (ops/paged.py, `paged=` given): the paged build (-DRAFT_PAGED=1 with
+the plan's RAFT_WRES, RAFT_PE, RAFT_M) takes the resident [N, W_res] log
+rows and the PagedLog leaves, in and out; a CUDA block is one allocation
+segment, so the block is the engine's lane tile and the pool's rows per
+block are a runtime dimension.
 """
 
 from __future__ import annotations
@@ -59,7 +71,8 @@ _P = ctypes.c_void_p
 _ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
 KERNELS = {
     name: Kernel(name, "raft_round", _ROUND_ARGS, lib="round")
-    for name in ("round_kernel", "round_kernel_diet")
+    for name in ("round_kernel", "round_kernel_diet", "round_kernel_paged",
+                 "round_kernel_paged_diet")
 }
 _SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1, "U16": 2, "U8": 1}
 _RINGS = ("WIN", "INFL", "READ", "READ_PEER")
@@ -76,6 +89,9 @@ DTYPES = {
     "BOOL": torch.bool, "U32": torch.uint32, "U16": torch.uint16, "U8": torch.uint8,
 }
 GROUPS = ("STATE", "CFG", "FABRIC", "OPS")
+LOG_LEAVES = ("log_term", "log_type", "log_bytes")  # [N, W_res] rows under paging
+PAGED_LEAVES = ("pt", "pool_term", "pool_type", "pool_bytes",
+                "faults", "exhausted", "dirty", "skipped")  # csrc/round.cu PG_*
 _FAB_CHANNELS = tuple(f.name for f in dataclasses.fields(Fabric))
 
 
@@ -187,10 +203,21 @@ def _shape(kind: str, n: int, v: int, d: dict) -> tuple:
     }[kind]
 
 
-def dims_of(state, fab, v: int) -> dict:
-    """The Shape of a slim carry: {v, w, e, f, r}."""
-    return {"v": v, "w": state.log_term.shape[1], "e": fab.rep.ent_term.shape[2],
+def dims_of(state, fab, v: int, paged=None) -> dict:
+    """The Shape of a carry: {v, w, e, f, r} (w the full window, also when
+    `paged` holds the carry's pages)."""
+    w = paged.w if paged is not None else state.log_term.shape[1]
+    return {"v": v, "w": w, "e": fab.rep.ent_term.shape[2],
             "f": state.infl_index.shape[2], "r": state.ro_ctx.shape[1]}
+
+
+def paged_plan(paged) -> tuple[int, int, int]:
+    """(W_res, PE, M) of a PagedLog: the paged build's geometry."""
+    return paged.w_res, paged.pool_term.shape[1], paged.pt.shape[1]
+
+
+def kernel_name(diet: bool, paged: bool) -> str:
+    return "round_kernel" + ("_paged" if paged else "") + ("_diet" if diet else "")
 
 
 def shape_name(d: dict) -> str:
@@ -214,21 +241,26 @@ def stride(cta: int) -> int:
     return -(-cta // 32) * 32
 
 
-def target(d: dict, cta: int, diet: bool = False) -> build.Target:
+def target(d: dict, cta: int, diet: bool = False, plan=None) -> build.Target:
     """The library of the kernel for Shape d and blocks of cta lanes, of
-    the diet-v2 build (-DRAFT_DIET=1) with diet."""
+    the diet-v2 build (-DRAFT_DIET=1) with diet, and of the paged build
+    with plan = (W_res, PE, M)."""
+    paged = ()
+    if plan is not None:
+        paged = (("RAFT_PAGED", 1),) + tuple(zip(("RAFT_WRES", "RAFT_PE", "RAFT_M"), plan))
     return build.Target(
         "round",
         tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),)
-        + ((("RAFT_DIET", 1),) if diet else ()),
+        + ((("RAFT_DIET", 1),) if diet else ()) + paged,
     )
 
 
-def smem_bytes(d: dict, cta: int) -> int:
+def smem_bytes(d: dict, cta: int, paged: bool = False) -> int:
     """Shared memory of one CUDA block of `cta` lanes at Shape d
     (csrc/round.cu Block): with S = stride(cta), the rings (but THROUGH) at
-    stride S, two fabric buffers at stride S + 1, two metrics rows; each
-    region padded to 16 bytes."""
+    stride S, two fabric buffers at stride S + 1, two metrics rows, and in
+    the paged build one row of warp totals; each region padded to 16
+    bytes."""
     v, w, e, f, r = (d[k] for k in "vwefr")
     elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
              "READ_PEER": r * v, "ENT": v * e}
@@ -245,7 +277,7 @@ def smem_bytes(d: dict, cta: int) -> int:
     sf = sr + 1
     rings = pad(4 * count("STATE", _RINGS, 4) * sr) + pad(count("STATE", _RINGS, 1) * sr)
     fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
-    return rings + 2 * fab + 2 * pad(4 * PART_USED)
+    return rings + 2 * fab + 2 * pad(4 * PART_USED) + (pad(4 * (MAX_CTA // 32)) if paged else 0)
 
 
 def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
@@ -264,18 +296,20 @@ def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
 
 
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
-         ops_round0_only, do_tick, auto_propose, auto_compact_lag):
+         ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None):
     """Check every leaf and allocate the outputs; returns (pointer list,
-    dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)."""
+    dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
+    and, given `paged`, the PagedLog out."""
     _check_layout()
     n = state.term.shape[0]
-    d = dims_of(state, fab, v)
+    d = dims_of(state, fab, v, paged)
     check_shape(d)
     if not 1 <= cta <= MAX_CTA or n % v or n % cta or cta % v:
         raise ValueError(f"bad lane layout: n={n}, v={v}, cta={cta}")
-    if smem_bytes(d, cta) > MAX_SMEM:
+    smem = smem_bytes(d, cta, paged is not None)
+    if smem > MAX_SMEM:
         raise ValueError(f"a CUDA block of cta={cta} lanes at {shape_name(d)} needs "
-                         f"{smem_bytes(d, cta)} bytes of shared memory, over {MAX_SMEM}")
+                         f"{smem} bytes of shared memory, over {MAX_SMEM}")
     if not 1 <= kc:
         raise ValueError(f"kc must be >= 1, got {kc}")
     dev = state.term.device
@@ -286,9 +320,30 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     }
     for g, leaves in groups.items():
         for (name, dt, kind), x in zip(tab[g], leaves):
-            _check(f"{g.lower()}.{name}", x, DTYPES[dt], _shape(kind, n, v, d), dev)
+            shape = _shape(kind, n, v, d)
+            if paged is not None and g == "STATE" and name in LOG_LEAVES:
+                shape = (n, paged.w_res)
+            _check(f"{g.lower()}.{name}", x, DTYPES[dt], shape, dev)
             if x.data_ptr() % 16:  # the kernel moves a lane's row in 16-byte accesses
                 raise ValueError(f"{g.lower()}.{name} must start 16-byte aligned")
+    pool_rows = 0
+    pg_in = [None] * len(PAGED_LEAVES)
+    if paged is not None:
+        w_res, pe, m = paged_plan(paged)
+        p = paged.pool_term.shape[0]
+        if p % (n // cta):
+            raise ValueError(f"pool_pages={p} does not split over {n // cta} CUDA blocks")
+        pool_rows = p // (n // cta)
+        pg_in = [getattr(paged, k) for k in PAGED_LEAVES]
+        want = {"pt": (torch.uint16, (n, m))}
+        for col, pool in zip(LOG_LEAVES, PAGED_LEAVES[1:4]):
+            want[pool] = (getattr(state, col).dtype, (p, pe))
+        for k in PAGED_LEAVES[4:]:
+            want[k] = (I32, (n,))
+        for k, x in zip(PAGED_LEAVES, pg_in):
+            _check(f"paged.{k}", x, *want[k], dev)
+            if x.data_ptr() % 16:
+                raise ValueError(f"paged.{k} must start 16-byte aligned")
     metrics = sampler is not None
     if mute is not None:
         _check("mute", mute, torch.bool, (n,), dev)
@@ -313,19 +368,23 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     ptrs += [ptr(x) for x in (sampler if metrics else (None, None))]
     ptrs += [ptr(round_ctr if metrics else None)]
     ptrs += [ptr(x) for x in st_out + fab_out + samp_out] + [ptr(parts)]
+    pg_out = [None if x is None else torch.empty_like(x) for x in pg_in]
+    ptrs += [ptr(x) for x in pg_in + pg_out]
     flags = (
         (F_MUTE if mute is not None else 0) | (F_METRICS if metrics else 0)
         | (F_TICK if do_tick else 0) | (F_AUTO_PROPOSE if auto_propose else 0)
         | (F_LAG if auto_compact_lag is not None else 0) | (F_OPS if apply_ops else 0)
         | (F_OPS_ROUND0 if ops_round0_only else 0)
     )
-    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta]
+    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta, pool_rows]
     outputs = (
         _state_from_leaves(state, st_out),
         _fab_from_leaves(fab, fab_out),
         tuple(samp_out) if metrics else None,
         parts,
     )
+    if paged is not None:
+        outputs += (dataclasses.replace(paged, **dict(zip(PAGED_LEAVES, pg_out))),)
     return ptrs, dims, flags, int(auto_compact_lag or 0), outputs
 
 
@@ -335,34 +394,39 @@ def as_c_args(ptrs, dims):
 
 def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
                apply_ops=True, ops_round0_only=True, do_tick=True,
-               auto_propose=False, auto_compact_lag=None):
+               auto_propose=False, auto_compact_lag=None, paged=None):
     """kc rounds in one launch. state/fab: the slim carry, or the diet-v2
     packed carry (the diet build of the kernel runs it); sampler:
     (samp_index, samp_round) with metrics on, else None; round_ctr: the
-    metrics round counter ([] int32 tensor). Returns (state, fab, sampler,
-    partials [kc, n / cta, PARTIAL_WIDTH] int32 or None)."""
+    metrics round counter ([] int32 tensor); paged: the PagedLog of a paged
+    carry (the state's log leaves its resident tails): each block of cta
+    lanes pages in, runs the rounds and pages out over its own sub-pool.
+    Returns (state, fab, sampler, partials [kc, n / cta, PARTIAL_WIDTH]
+    int32 or None), and the PagedLog when paged."""
     kw = dict(v=v, kc=kc, cta=cta, apply_ops=apply_ops, ops_round0_only=ops_round0_only,
               do_tick=do_tick, auto_propose=auto_propose,
-              auto_compact_lag=auto_compact_lag)
+              auto_compact_lag=auto_compact_lag, paged=paged)
     if state.term.device.type == "cpu":
         from raft_tpu_torch.ops.pallas_round import round_kernel_ref
 
         return round_kernel_ref(state, fab, ops, mute, sampler, round_ctr, **kw)
     ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr, **kw)
     diet = is_packed(state)
-    t = library(dims_of(state, fab, v), cta, diet)
+    plan = paged_plan(paged) if paged is not None else None
+    t = library(dims_of(state, fab, v, paged), cta, diet, plan)
     arr, nptr, cdims = as_c_args(ptrs, dims)
-    kernel = KERNELS["round_kernel_diet" if diet else "round_kernel"]
+    kernel = KERNELS[kernel_name(diet, paged is not None)]
     kernel.launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
     return outputs
 
 
-def library(d: dict, cta: int, diet: bool = False) -> build.Target:
+def library(d: dict, cta: int, diet: bool = False, plan=None) -> build.Target:
     """Build (once) the kernel for Shape d and blocks of cta lanes (the
-    diet-v2 build with diet); raises naming the Shape when its library
-    does not build. Returns the build target."""
-    t = target(d, cta, diet)
-    name = "round_kernel_diet" if diet else "round_kernel"
+    diet-v2 build with diet, the paged build with plan = (W_res, PE, M));
+    raises naming the Shape when its library does not build. Returns the
+    build target."""
+    t = target(d, cta, diet, plan)
+    name = kernel_name(diet, plan is not None)
     try:
         KERNELS[name].fn(t)
     except RuntimeError as e:

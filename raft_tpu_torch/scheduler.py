@@ -16,6 +16,7 @@ import torch
 
 from raft_tpu_torch.config import Shape, resolve_device
 from raft_tpu_torch.metrics.host import merge_snapshots
+from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops.fused import FusedCluster, LocalOps, make_local_ops
 from raft_tpu_torch.types import StateType
@@ -24,8 +25,10 @@ from raft_tpu_torch.types import StateType
 class BlockedFusedCluster:
     """The driving API mirrors FusedCluster; per-lane injections address
     lanes in global order (block i owns lanes [i*B*V, (i+1)*B*V)). Runs on
-    `cuda` unless `device` names another device. diet / engine / tile_lanes
-    / rounds_per_call pass through to every block (FusedCluster)."""
+    `cuda` unless `device` names another device. diet / paged /
+    paged_inkernel / engine / tile_lanes / rounds_per_call pass through to
+    every block (FusedCluster); a paged Shape's plan is checked for one
+    block's lanes before any block allocates."""
 
     def __init__(
         self,
@@ -56,6 +59,10 @@ class BlockedFusedCluster:
         self.k = n_groups // block_groups
         self.lanes_per_block = block_groups * n_voters
         self.round_chunk = round_chunk
+        # a bad page plan fails here, before any block allocates a carry
+        # (raft_tpu/scheduler.py:243-250); each block checks it again
+        if cfg.get("paged") and shape is not None:
+            pgmod.validate_page_plan(shape, self.lanes_per_block)
         self.blocks = [
             FusedCluster(
                 block_groups, n_voters, seed=seed + 7919 * i, shape=shape,
@@ -134,6 +141,14 @@ class BlockedFusedCluster:
             b._metrics_acc.pull(row[:nc], row[nc:-2], row[-2], row[-1])
             snaps.append(b._metrics_acc.snapshot())
         return merge_snapshots(snaps)
+
+    def paged_stats(self) -> dict | None:
+        """The blocks' paged_stats summed (pool pages included); None
+        without paging."""
+        stats = [b.paged_stats() for b in self.blocks]
+        if stats[0] is None:
+            return None
+        return {k: sum(s[k] for s in stats) for k in stats[0]}
 
     def state_columns(self, *names) -> dict:
         """The named [N_block]-leading state columns of every block,

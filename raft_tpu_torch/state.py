@@ -196,6 +196,9 @@ def fat_state(state: RaftState) -> RaftState:
 # never packed. The JAX lease columns are not in this port's RaftState.
 
 ERR_DIET_OVERFLOW = 64
+# the paged entry log's pool ran out at page_out (ops/paged.py): the lane
+# keeps its resident tail, its overflow pages read back as absent entries
+ERR_PAGE_EXHAUSTED = 128
 
 # inclusive value range of each packed storage dtype
 _DIET_RANGE = {

@@ -222,3 +222,39 @@ def test_diet_pallas_on_card_matches_cpu(card):
             + interop.to_numpy_leaves(c.metrics)
         )
     assert digests[None] == digests["cpu"]
+
+
+def test_paged_round_kernel_equals_plain(card):
+    """The paged builds (in-kernel paging, slim and diet) against
+    round_kernel_ref on the card: K = 1 and 8, a full pool and one that
+    exhausts, launches that reallocate and launches that skip the
+    allocator; every carry, partials and PagedLog leaf (chip_smoke's
+    round_kernel_paged phase)."""
+    from chip_smoke import check_round_kernel_paged
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    before = {name: q.launches for name, q in rc.KERNELS.items()}
+    check_round_kernel_paged(card)
+    for name in ("round_kernel_paged", "round_kernel_paged_diet"):
+        assert rc.KERNELS[name].launches > before[name]
+
+
+def test_paged_pallas_on_card_matches_cpu(card):
+    """The paged pallas engine on the card against the CPU, in-kernel and at
+    the dispatch boundary: one digest over every leaf, PagedLog included,
+    and the host_state of the unpaged run (chip_smoke's parity_paged)."""
+    from chip_smoke import check_parity_paged
+
+    check_parity_paged()
+
+
+def test_paged_tile_over_a_cuda_block_raises(card):
+    """In-kernel paging on the card runs each lane tile as one CUDA block: a
+    258-lane tile raises TileError naming MAX_CTA at construction."""
+    from raft_tpu_torch.ops.pallas_round import TileError
+
+    shape = Shape(n_lanes=516, max_peers=3, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2, pool_pages=516 * 3 + 8 + 2)
+    with pytest.raises(TileError, match="MAX_CTA=256"):
+        FusedCluster(172, 3, shape=shape, engine="pallas", tile_lanes=258, paged=True,
+                     paged_inkernel=True)

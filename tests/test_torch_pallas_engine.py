@@ -201,9 +201,11 @@ def test_pack_checks_every_leaf():
     ptrs, dims, flags, lag, outputs = rc.pack(
         c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw
     )
-    # no scratch fabric: the K rounds keep the fabric in shared memory
-    assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 3
-    assert dims == [N, V, 8, 2, 2, 2, 2, TILE] and lag == 4
+    # no scratch fabric: the K rounds keep the fabric in shared memory; the
+    # PagedLog's 8 leaves in and out close the table, null when unpaged
+    assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 3 + 2 * 8
+    assert ptrs[-16:] == [None] * 16
+    assert dims == [N, V, 8, 2, 2, 2, 2, TILE, 0] and lag == 4
     assert flags == rc.F_MUTE | rc.F_METRICS | rc.F_TICK | rc.F_AUTO_PROPOSE | rc.F_LAG | rc.F_OPS | rc.F_OPS_ROUND0
     assert outputs[3].shape == (2, N // TILE, plr.PARTIAL_WIDTH)
     fat = tfused.fat_fabric(c.fab)

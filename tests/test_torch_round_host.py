@@ -4,16 +4,20 @@ raft_round_host entry runs the kernel's phases block by block on a
 block-sized buffer with the kernel's shared-memory layout, held against the
 kernel's plain version (ops/pallas_round.py round_kernel_ref) through
 partitions, re-elections, proposals, reads, transfers and conf changes, at
-K = 1 and 3 rounds per launch; and its diet-v2 build (-DRAFT_DIET=1) on
+K = 1 and 3 rounds per launch; its diet-v2 build (-DRAFT_DIET=1) on
 the packed carry, through a carry fast-forwarded to just under 65,535 so
 that rounds overflow the packed uint16 columns and the boundary's clamps
-and ERR_DIET_OVERFLOW bits show. Exact equality on every carry leaf and
-partials row. Skips without a C++ compiler.
+and ERR_DIET_OVERFLOW bits show; and its paged builds (-DRAFT_PAGED=1,
+slim and diet) paging in the kernel over two-segment pools, one that
+holds every lane and one that exhausts, through launches that reallocate
+and launches that skip the allocator. Exact equality on every carry leaf,
+partials row and PagedLog leaf. Skips without a C++ compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -24,9 +28,10 @@ import torch
 from raft_tpu_torch import build, interop
 from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
+from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
-from raft_tpu_torch.state import ERR_DIET_OVERFLOW, is_packed
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED, is_packed
 
 G = 4
 RUN = dict(auto_propose=True, auto_compact_lag=4)
@@ -54,6 +59,9 @@ CASES = [
 ]
 # (v, cfg, (w, e, f, r)) of the diet build's lane tests
 DIET_CASES = [(3, {}, BASE), (5, dict(pre_vote=True, check_quorum=True), WRAP)]
+# the paged builds' Shape (the bench widths) and plan (W_res, PE, M) at V=3
+PAGED_WEFR = (16, 2, 2, 2)
+PAGED_PLAN = (8, 4, 4)
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +78,9 @@ def host_lib(tmp_path_factory):
     libs = {}
 
     def start(key):
-        v, wefr, diet = key
+        v, wefr, diet, plan = key
         d = dict(zip("vwefr", (v, *wefr)))
-        t = rc.target(d, 2 * v, diet)
+        t = rc.target(d, 2 * v, diet, plan)
         so = root / f"{t.key}.so"
         proc = subprocess.Popen(
             [cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas",
@@ -81,12 +89,13 @@ def host_lib(tmp_path_factory):
         )
         procs[key] = (proc, so)
 
-    def get(v, wefr=BASE, diet=False):
-        key = (v, wefr, diet)
+    def get(v, wefr=BASE, diet=False, plan=None):
+        key = (v, wefr, diet, plan)
         if key not in libs:
             if not procs:
-                for k in dict.fromkeys([(cv, cw, False) for cv, _, cw in CASES]
-                                       + [(cv, cw, True) for cv, _, cw in DIET_CASES]):
+                for k in dict.fromkeys([(cv, cw, False, None) for cv, _, cw in CASES]
+                                       + [(cv, cw, True, None) for cv, _, cw in DIET_CASES]
+                                       + [(3, PAGED_WEFR, d, PAGED_PLAN) for d in (False, True)]):
                     start(k)
             if key not in procs:
                 start(key)
@@ -101,6 +110,7 @@ def host_lib(tmp_path_factory):
             lib.raft_round_shape.argtypes = [ctypes.c_void_p]
             lib.raft_round_diet.argtypes = []
             lib.raft_round_diet.restype = ctypes.c_int
+            lib.raft_round_paged.argtypes = [ctypes.c_void_p]
             libs[key] = lib
         return libs[key]
 
@@ -111,12 +121,14 @@ def host_lib(tmp_path_factory):
 
 
 def _outputs(res):
-    st, fb, samp, parts = res
+    st, fb, samp, parts = res[:4]
     names = rc.dataclass_names()
     out = [("state." + n, x) for n, x in zip(names["STATE"], interop.to_numpy_leaves(st))]
     out += [("fabric." + n, x) for n, x in zip(names["FABRIC"], interop.to_numpy_leaves(fb))]
     out += [("samp_index", samp[0].numpy()), ("samp_round", samp[1].numpy()),
             ("partials", parts.numpy())]
+    if len(res) > 4:  # the PagedLog of a paged launch
+        out += [("paged." + n, x) for n, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(res[4]))]
     return out
 
 
@@ -228,3 +240,49 @@ def test_diet_lane_code_equals_plain_version(host_lib, v, cfg, wefr, near):
     assert bool(flagged.any()) == near
     if near:  # the clamp held the column at the top of its range
         assert int(c.state.last.to(torch.int32).max()) == 65535
+
+
+@pytest.mark.parametrize("pool", [0, 8], ids=["full_pool", "exhausting_pool"])
+@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+def test_paged_lane_code_equals_plain_version(host_lib, diet, pool):
+    """The paged build (in-kernel paging, two 6-lane segments) against
+    round_kernel_ref on the same resident carry and PagedLog: launches at
+    K = 1 and 3 with proposals while the logs outrun the resident window
+    (the allocator runs: pages written, and with the 8-page pool lanes
+    clamped with ERR_PAGE_EXHAUSTED), then quiet launches (no tick, no
+    proposals) until the allocator is skipped on both sides."""
+    v = 3
+    lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN)
+    geo = (ctypes.c_longlong * 4)()
+    lib.raft_round_paged(geo)
+    assert tuple(geo) == (1, *PAGED_PLAN) and lib.raft_round_diet() == int(diet)
+    d = dict(zip("vwefr", (v, *PAGED_WEFR)))
+    assert lib.raft_round_smem() == rc.smem_bytes(d, 2 * v, paged=True) > rc.smem_bytes(d, 2 * v)
+    n = G * v
+    # the 8-page pool: 4 pages a segment, under what the deep lanes need
+    shape = dataclasses.replace(_shape(n, v, PAGED_WEFR), pool_pages=pool)
+    c = tfused.FusedCluster(G, v, seed=7, shape=shape, device="cpu", diet=diet,
+                            engine="pallas", tile_lanes=2 * v, paged=True, paged_inkernel=True)
+    assert c._paged_segs == 2 and c.paged.pool_term.shape[0] == (pool or n * 3 + 8)
+    c.run(12, auto_propose=True, auto_compact_lag=12)
+    skipped0 = int(c.paged.skipped.sum())
+    for r in range(14):
+        quiet = r >= 8
+        ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=5) if r % 4 == 0 else c._no_ops
+        m = c.metrics
+        args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+        kc = 1 + 2 * (r % 2)
+        kw = dict(v=v, kc=kc, cta=2 * v, apply_ops=not quiet, ops_round0_only=True,
+                  do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged)
+        want = plr.round_kernel_ref(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got)):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (diet, pool, r, name)
+        c.state, c.fab, c.paged = want[0], want[1], want[4]
+        c.metrics = plr.fold_partials(m, want[2], want[3], kc)
+    stats = pgmod.paged_stats(c.paged)
+    assert stats["paged_pages_dirty"] > 0 and stats["paged_alloc_skipped"] > skipped0
+    exhausted = (c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0
+    assert bool(exhausted.any()) == (pool > 0) and (stats["paged_exhausted"] > 0) == (pool > 0)
