@@ -14,8 +14,9 @@ Phases:
   build    nvcc of csrc/quorum.cu and of csrc/round.cu for each (Shape,
            CUDA block, carry layout) the script uses (ROUND_BUILDS:
            W16/E2/F2/R2 at V=3 with the engine's 96-lane block and 6, 48 and
-           192 lanes, at V=5 with 10, and the diet-v2 build at V=3 with 96
-           and 6), all started together: seconds of each, ptxas's
+           192 lanes, at V=5 with 10, the diet-v2 build at V=3 with 96
+           and 6, and the paged builds, slim and diet, with 96 and 6),
+           all started together: seconds of each, ptxas's
            registers, stack frame and spills of every kernel function
            (each quorum kernel at each V), and the round kernel's shared
            memory and resident blocks per SM
@@ -83,6 +84,17 @@ Phases:
            (round_kernel_diet_timing) and profiled (profile_pallas_diet)
   eager_diet     the eager engine on 2 of the main path's blocks, 40 rounds,
            diet on and off: one host_state digest, one total_committed
+  round_kernel_paged  the paged builds (-DRAFT_PAGED=1, in-kernel paging)
+           against round_kernel_ref: slim and diet, K in {1,8}, a full pool
+           and one that exhausts, launches that reallocate and launches
+           that skip the allocator; every carry, partials and PagedLog leaf
+  parity_paged   the paged pallas engine on the card against the CPU,
+           in-kernel and at the dispatch boundary
+  main_pallas_paged  the paged main path at full width (run_main_paged,
+           check_main_paged): in-kernel, in-kernel diet, at the dispatch
+           boundary and flat; one host_state digest, the pool in use, no
+           error bit; the paged builds timed at its shape
+           (round_kernel_paged_timing, round_kernel_paged_diet_timing)
 """
 
 from __future__ import annotations
@@ -134,13 +146,16 @@ MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
 BLOCK_LANES = MAIN_BLOCK_GROUPS * VOTERS  # 196,608
-# the paged main path: 32 blocks of 32,768 groups (a page id is uint16, so a
-# block's pool holds at most 65,536 pages), and paged_ab's pool of about one
-# page per two lanes plus headroom, rounded up to split over the block's
-# 1,024 tiles of 96 lanes
-PAGED_BLOCK_GROUPS = 1 << 15
-PAGED_BLOCK_LANES = PAGED_BLOCK_GROUPS * VOTERS  # 98,304
-PAGED_POOLS = (50_176, 65_536)  # the first, then the most a block holds
+# the paged main path: a page id is uint16, so a block's pool holds at most
+# 65,536 pages, and benches/paged_ab.py's traffic maps about two pages for
+# every three lanes (after its second all-groups sweep every follower of a
+# cold group is one entry past its 8-entry tail), plus a trash row for
+# each 96-lane tile: 98,304-lane blocks exhaust even 65,536 pages, so 64
+# blocks of 16,384 groups, with a page for every lane (96 a tile), then
+# the most a block holds
+PAGED_BLOCK_GROUPS = 1 << 14
+PAGED_BLOCK_LANES = PAGED_BLOCK_GROUPS * VOTERS  # 49,152
+PAGED_POOLS = (49_152, 65_536)
 PAGED_SWEEP = 16  # rounds per Zipf sweep (benches/paged_ab.py AB_ROUNDS)
 TIMED_ROUNDS = 32
 WARM_LIMIT = 40 * 16  # bench.py:76-84
@@ -182,17 +197,18 @@ def profiled_ms(fn, name: str, iters: int = 100, cold: bool = False) -> float:
     flush = torch.empty(1 << 25, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.fill_(0)
-            fn()
-        torch.cuda.synchronize()
-    times = [_device_us(e) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    if not times:
-        raise AssertionError(f"the profiler recorded no {name} kernel")
-    return sum(times) / len(times) / 1e3
+    for _ in range(3):  # a profiling session that records no kernel is repeated
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if cold:
+                    flush.fill_(0)
+                fn()
+            torch.cuda.synchronize()
+        times = [_device_us(e) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if times:
+            return sum(times) / len(times) / 1e3
+    raise AssertionError(f"the profiler recorded no {name} kernel in three sessions")
 
 
 def raw_launch(kernel, *args, target=None):
@@ -1029,8 +1045,8 @@ def paged_bytes_per_lane(c) -> float:
 
 
 def run_main_paged(dev, phase: str, pool: int, **paging):
-    """The paged main path at full width: 1,048,576 groups x 3 as 32 blocks
-    of 32,768 on engine="pallas" at K=8 (round_chunk 8), with
+    """The paged main path at full width: 1,048,576 groups x 3 as 64 blocks
+    of 16,384 on engine="pallas" at K=8 (round_chunk 8), with
     benches/paged_ab.py's traffic: elect under the shallow compaction lag
     W_res / 2 = 4, then 4 Zipf sweeps of 16 rounds at lag W - 4 = 12 to
     shape the depth profile, and 8 timed ones. Returns (cluster, the
@@ -1078,7 +1094,7 @@ def run_main_paged(dev, phase: str, pool: int, **paging):
 
 def check_main_paged(dev):
     """main_pallas_paged: the paged main path in-kernel (the default 96-lane
-    tile: 1,024 segments a block), in-kernel with diet=True, at the
+    tile: 512 segments a block), in-kernel with diet=True, at the
     dispatch boundary, and with paging off: one host_state digest, the pool
     in use, no error bit; round_kernel_paged (round_kernel_paged_diet)
     launched rounds x blocks / K times in the in-kernel runs, round_kernel

@@ -1374,16 +1374,13 @@ class FusedCluster:
         # read the page ids under: 1, or one per lane tile when the pallas
         # engine pages in the kernel.
         self.paged = None
-        self._page_plan = None
         self._paged_segs = 1
         if paged:
-            self._page_plan = pgmod.validate_page_plan(self.shape, n)
+            plan = pgmod.validate_page_plan(self.shape, n)
             if self._paged_inkernel and self.engine == "pallas":
                 self._paged_segs = n // self._pallas_tile
-                pgmod.check_pool_segments(self._page_plan, self._paged_segs)
-            self.state, self.paged = pgmod.split_state(
-                self.state, self._page_plan, self._paged_segs
-            )
+                pgmod.check_pool_segments(plan, self._paged_segs)
+            self.state, self.paged = pgmod.split_state(self.state, plan, self._paged_segs)
 
     def run(
         self,

@@ -179,7 +179,7 @@ def init_paged(plan: PagePlan, state: RaftState) -> PagedLog:
     )
 
 
-# -- the [segs, N / segs, ...] view ------------------------------------------
+# -- page_in / page_out on a [segs, N / segs, ...] view ----------------------
 
 
 def _bits(x):
@@ -200,7 +200,9 @@ def _cursors(state: RaftState, segs: int):
     return _seg(state.last.to(I32), segs), _seg(state.snap_index.to(I32), segs)
 
 
-def _page_in(state: RaftState, paged: PagedLog, segs: int):
+def page_in(state: RaftState, paged: PagedLog, segs: int = 1):
+    """The full `[N, W]` window from the resident tail and the pool; returns
+    (full_state, paged) with `faults` bumped by the lane's mapped pages."""
     w, w_res = paged.w, paged.w_res
     p, pe = paged.pool_term.shape
     p //= segs
@@ -255,7 +257,9 @@ def _tail_cols(state: RaftState, paged: PagedLog) -> dict:
     return out
 
 
-def _page_out(state: RaftState, paged: PagedLog, segs: int):
+def page_out(state: RaftState, paged: PagedLog, segs: int = 1):
+    """Split a full-window state into its resident tail and a pool and page
+    table rebuilt from scratch; returns (resident_state, paged)."""
     w = paged.w
     p, pe = paged.pool_term.shape
     p //= segs
@@ -311,21 +315,6 @@ def _page_out(state: RaftState, paged: PagedLog, segs: int):
     return resident, new
 
 
-# -- the functions of the round ----------------------------------------------
-
-
-def page_in(state: RaftState, paged: PagedLog, segs: int = 1):
-    """The full `[N, W]` window from the resident tail and the pool; returns
-    (full_state, paged) with `faults` bumped by the lane's mapped pages."""
-    return _page_in(state, paged, segs)
-
-
-def page_out(state: RaftState, paged: PagedLog, segs: int = 1):
-    """Split a full-window state into its resident tail and a pool and page
-    table rebuilt from scratch; returns (resident_state, paged)."""
-    return _page_out(state, paged, segs)
-
-
 def page_out_cond(state: RaftState, paged: PagedLog, last_pre, snap_pre, *,
                   can_skip: bool, segs: int = 1):
     """page_out, or, where `can_skip` (every in-round log write lands in the
@@ -336,17 +325,17 @@ def page_out_cond(state: RaftState, paged: PagedLog, last_pre, snap_pre, *,
     segments moved, none, or a mix (then both are computed and selected
     per segment)."""
     if not can_skip:
-        return _page_out(state, paged, segs)
+        return page_out(state, paged, segs)
     moved = (_seg(state.last.to(I32) != last_pre, segs).any(dim=1)
              | _seg(state.snap_index.to(I32) != snap_pre, segs).any(dim=1))
     mv = moved.cpu()
+    if bool(mv.all()):
+        return page_out(state, paged, segs)
     skip_st = dataclasses.replace(state, **_tail_cols(state, paged))
     skip_pg = dataclasses.replace(paged, skipped=paged.skipped + 1)
-    if bool(mv.all()):
-        return _page_out(state, paged, segs)
     if not bool(mv.any()):
         return skip_st, skip_pg
-    full_st, full_pg = _page_out(state, paged, segs)
+    full_st, full_pg = page_out(state, paged, segs)
 
     def pick(a, b):
         sel = moved.reshape((segs,) + (1,) * a.dim())
@@ -362,26 +351,21 @@ def page_out_cond(state: RaftState, paged: PagedLog, last_pre, snap_pre, *,
 
 # -- host views of a paged carry -------------------------------------------------
 
-
-def page_in_host(state: RaftState, paged: PagedLog, segs: int = 1):
-    """page_in with segment-local addressing; returns (full_state, paged)."""
-    return _page_in(state, paged, segs)
+# The JAX package's host twins are vmaps of page_in / page_out over the
+# segments; here every function takes `segs` itself.
+page_in_host = page_in
+page_out_host = page_out
 
 
 def page_in_view(state: RaftState, paged: PagedLog, segs: int = 1) -> RaftState:
     """The full-window view only (the faults bump is discarded)."""
-    return _page_in(state, paged, segs)[0]
-
-
-def page_out_host(state: RaftState, paged: PagedLog, segs: int = 1):
-    """page_out with segment-local allocation; returns (resident, paged)."""
-    return _page_out(state, paged, segs)
+    return page_in(state, paged, segs)[0]
 
 
 def split_state(state: RaftState, plan: PagePlan, segs: int = 1):
     """A full-window state (in its storage form, slim or packed) split into
     (resident_state, paged) under a fresh sidecar."""
-    return _page_out(state, init_paged(plan, state), segs)
+    return page_out(state, init_paged(plan, state), segs)
 
 
 def resegment(state: RaftState, paged: PagedLog, old_segs: int, new_segs: int):
@@ -389,7 +373,7 @@ def resegment(state: RaftState, paged: PagedLog, old_segs: int, new_segs: int):
     the full window under the old one, split it under the new."""
     if old_segs == new_segs:
         return state, paged
-    return _page_out(page_in_view(state, paged, old_segs), paged, new_segs)
+    return page_out(page_in_view(state, paged, old_segs), paged, new_segs)
 
 
 def paged_stats(paged: PagedLog) -> dict:

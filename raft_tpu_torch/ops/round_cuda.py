@@ -55,6 +55,7 @@ import torch
 
 from raft_tpu_torch import build
 from raft_tpu_torch.ops.fused import Fabric, LocalOps
+from raft_tpu_torch.ops.paged import LEAVES, LOG_COLS
 from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
 from raft_tpu_torch.state import LaneConfig, RaftState, is_packed
 
@@ -89,9 +90,9 @@ DTYPES = {
     "BOOL": torch.bool, "U32": torch.uint32, "U16": torch.uint16, "U8": torch.uint8,
 }
 GROUPS = ("STATE", "CFG", "FABRIC", "OPS")
-LOG_LEAVES = ("log_term", "log_type", "log_bytes")  # [N, W_res] rows under paging
-PAGED_LEAVES = ("pt", "pool_term", "pool_type", "pool_bytes",
-                "faults", "exhausted", "dirty", "skipped")  # csrc/round.cu PG_*
+# under paging the log leaves are [N, W_res] rows, and the PagedLog leaves
+# (csrc/round.cu PG_*) close the pointer table
+LOG_LEAVES, PAGED_LEAVES = LOG_COLS, LEAVES
 _FAB_CHANNELS = tuple(f.name for f in dataclasses.fields(Fabric))
 
 
