@@ -79,6 +79,25 @@
 //   (warp shuffles, one shared row of warp totals), its pages written,
 //   and every other row of the sub-pool zeroed, with ERR_PAGE_EXHAUSTED on
 //   a lane that did not fit. Built with and without RAFT_DIET.
+// - The chaos build (-DRAFT_CHAOS=1: the chaos plane of
+//   raft_tpu_torch/chaos/device.py, replacing the chaos branch of the
+//   Pallas kernel, :616-634, :670-700, :728-730). Per lane and in-kernel
+//   round (absolute round = the launch's first round + k): at a crash or
+//   restart round the lane's registers and ring columns are wiped
+//   (wipe_lane); its inbound cells are cut by the partition masks, a down
+//   endpoint and one drop draw per channel and edge, as bits of a mask per
+//   channel read through the inbox (InFab), so that no sender's cell is
+//   written; a down or skipped lane does not tick; after the round, cells
+//   of the lane's previous outbox (the buffer it read this round) fill
+//   empty cells of its new one where the duplicate draw fires, before the
+//   storage boundary; and the recovery probe reads its group's
+//   has-a-leader and committed-past-base flags from a byte a lane, written
+//   before the round's barrier and read after it, then a second barrier
+//   before the partials row takes the block's recounts. The draws are
+//   chaos/device.py's counter-based hash on the global lane (i), so
+//   blocks and K do not change them. Knobs are read from device memory
+//   each round; the probe columns ride in registers. Not built with
+//   RAFT_PAGED.
 // - The commit index and vote tallies are per lane over its own [V]
 //   progress rows: raft::joint_committed / reduce_half<V> of quorum.cuh,
 //   shared with quorum.cu.
@@ -297,12 +316,36 @@
   X(self_term, U16, LANE)       \
   X(self_index, U16, LANE)
 
+// The chaos build's columns (raft_tpu_torch/chaos/device.py KNOBS and
+// PROBES), int32, in pointer order: the knobs are read, the probes read and
+// written.
+#define RAFT_CHAOS_KNOBS(X)      \
+  X(drop_num, I32, PEER)         \
+  X(dup_num, I32, PEER)          \
+  X(part_send, I32, LANE)        \
+  X(part_recv, I32, LANE)        \
+  X(tick_skew_num, I32, LANE)    \
+  X(crash_at, I32, LANE)         \
+  X(restart_at, I32, LANE)
+
+#define RAFT_CHAOS_PROBES(X)     \
+  X(base_committed, I32, LANE)   \
+  X(reelect_round, I32, LANE)    \
+  X(recommit_round, I32, LANE)
+
 #ifndef RAFT_DIET
 #define RAFT_DIET 0
 #endif
 
 #ifndef RAFT_PAGED
 #define RAFT_PAGED 0
+#endif
+
+#ifndef RAFT_CHAOS
+#define RAFT_CHAOS 0
+#endif
+#if RAFT_CHAOS && RAFT_PAGED
+#error "the chaos build does not take the paged entry log (ROADMAP Queue 2)"
 #endif
 #if RAFT_PAGED && (!defined(RAFT_WRES) || !defined(RAFT_PE) || !defined(RAFT_M))
 #error "the paged build takes its geometry: -DRAFT_WRES= -DRAFT_PE= -DRAFT_M="
@@ -368,6 +411,11 @@ enum : int { RAFT_FABRIC_FIELDS(RAFT_ENUM_FAB) };
 #undef RAFT_ENUM_CFG
 #undef RAFT_ENUM_FAB
 
+#define RAFT_ENUM_CHAOS(name, dt, shape) CH_##name,
+enum : int { RAFT_CHAOS_KNOBS(RAFT_ENUM_CHAOS) kChaosKnobs };
+enum : int { RAFT_CHAOS_PROBES(RAFT_ENUM_CHAOS) kChaosProbes };
+#undef RAFT_ENUM_CHAOS
+
 // The pointer table, in this order (round_cuda.py builds the same list):
 enum : int {
   P_STATE_IN = 0,                  // RaftState leaves without cfg, slim
@@ -385,7 +433,13 @@ enum : int {
   P_PARTIALS,                      // [kc, n / cta, kPartialWidth] i32
   P_PAGED_IN,                      // PagedLog leaves (PG_* order; paged
   P_PAGED_OUT = P_PAGED_IN + 8,    // build, else null), in and out
-  kNumPtrs = P_PAGED_OUT + 8
+  P_CH_KNOB = P_PAGED_OUT + 8,     // the chaos build only: its knob columns,
+  P_CH_PROBE_IN = P_CH_KNOB + kChaosKnobs,  // the probe columns in,
+  P_CH_ROUND = P_CH_PROBE_IN + kChaosProbes, // [] i32 the launch's first round,
+  P_CH_HEAL,                                 // [] i32 heal_round,
+  P_CH_SEED,                                 // [] u32 the PRNG stream,
+  P_CH_PROBE_OUT,                            // the probe columns out
+  kNumPtrs = RAFT_CHAOS ? P_CH_PROBE_OUT + kChaosProbes : P_CH_KNOB
 };
 
 // the PagedLog leaves (ops/paged.py LEAVES): pt [N, M] u16, the pool
@@ -409,6 +463,12 @@ constexpr int kCounters = 13;  // metrics/device.py COUNTERS
 constexpr int kBuckets = 11;   // metrics/device.py N_BUCKETS
 constexpr int kPartUsed = kCounters + kBuckets + 1;
 constexpr int kPartialWidth = 128;
+// the chaos build's recounts n_reelected / n_recommitted: shared-memory
+// slots after the metrics sums, row slots after them with metrics on, at 0
+// without
+constexpr int kChaosPart = RAFT_CHAOS ? 2 : 0;
+constexpr int kAccN = kPartUsed + kChaosPart;
+constexpr int NEVER = 1 << 30;  // chaos/device.py NEVER
 enum : int {
   C_ELECTIONS_STARTED = 0, C_ELECTIONS_WON, C_LEADER_CHANGES, C_COMMITS,
   C_PROPOSALS, C_PROPOSALS_DROPPED, C_MSGS_APP, C_MSGS_APP_RESP,
@@ -585,16 +645,19 @@ struct Block {
   static constexpr long long fab32_bytes = pad16(4LL * kFab32 * sf);
   static constexpr long long fab_bytes = fab32_bytes + pad16((long long)kFab8 * sf);
   static constexpr long long acc0 = fab0 + 2 * fab_bytes;
-  static constexpr long long acc_bytes = pad16(4LL * kPartUsed);
+  static constexpr long long acc_bytes = pad16(4LL * kAccN);
   // the paged build's warp totals of its block scan
   static constexpr long long scan0 = acc0 + 2 * acc_bytes;
-  static constexpr long long bytes = scan0 + (RAFT_PAGED ? pad16(4LL * (kMaxCta / 32)) : 0);
+  // the chaos build's probe flags, a byte a lane
+  static constexpr long long flag0 = scan0 + (RAFT_PAGED ? pad16(4LL * (kMaxCta / 32)) : 0);
+  static constexpr long long bytes = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
 
   // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
   RAFT_HD long long fab32(int b) const { return fab0 + b * fab_bytes; }
   RAFT_HD long long fab8(int b) const { return fab32(b) + fab32_bytes; }
   RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
   RAFT_HD int *scan() const { return (int *)(base + scan0); }
+  RAFT_HD uint8_t *flag() const { return base + flag0; }
 };
 
 template <typename ST>
@@ -816,6 +879,25 @@ RAFT_HD Fab inbox(const Block &B, int b, int t) {
 #undef RAFT_BIND_IN
   return f;
 }
+
+#if RAFT_CHAOS
+// The chaos build's inbox: the kind of inbound cell e reads MSG_NONE where
+// bit e of its channel's cut is set (the mute cut and the chaos cuts), so
+// a sender's cells stay as it sent them, for its duplicate redelivery.
+struct KindCol {
+  int8_t *p;
+  int s;
+  uint32_t cut;
+  RAFT_HD int operator[](int e) const {
+    return (cut >> e) & 1u ? (int)MSG_NONE : (int)p[(long long)e * s];
+  }
+};
+struct InFab : Fab {
+  KindCol rep_kind, hb_kind, vote_kind, vresp_kind, self_kind;  // hide Fab's
+};
+#else
+using InFab = Fab;
+#endif
 
 // ---------------------------------------------------------------------------
 // per-thread leaf I/O, by member type: LANE scalars and PEER rows between
@@ -1148,13 +1230,13 @@ RAFT_HD uint32_t rng_next(uint32_t rng) { return rng * 1664525u + 1013904223u; }
 struct Round {
   Lane &L;
   const Cfg &c;
-  const Fab &in;
+  const InFab &in;
   const Fab &out;
   int ss;          // self slot (step.self_slot), -1 when untracked
   bool is_self[V];
   bool send_sel[V], send_sie[V];
 
-  RAFT_HD Round(Lane &l, const Cfg &cf, const Fab &inb, const Fab &o)
+  RAFT_HD Round(Lane &l, const Cfg &cf, const InFab &inb, const Fab &o)
       : L(l), c(cf), in(inb), out(o) {
     // step.find_slot(state, state.id): the first hot slot
     ss = -1;
@@ -1756,11 +1838,12 @@ struct Sampler {  // metrics/device.py samp_index / samp_round of this lane
 
 // One round of lane `L` on its routed inbox `in` (mute cut applied) into
 // the cleared outbox `out`. round_ctr is the metrics round counter before
-// this round; ev gets this lane's metric deltas.
-RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const Fab &in, const Ops &ops,
+// this round; ev gets this lane's metric deltas. tick: the chaos build's
+// tick mask (false: the clocks hold and no tick fires).
+RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops &ops,
                               uint32_t cut, int flags, int lag,
                               int round_ctr, Sampler &samp, const Fab &out,
-                              Events &ev) {
+                              Events &ev, bool tick = true) {
   Round rd(L, c, in, out);
   const bool *is_self = rd.is_self;
   const bool metrics = flags & F_METRICS;
@@ -1776,11 +1859,25 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const Fab &in, const Ops &o
     const bool is_leader0 = L.state == LEADER;
     int ee = L.election_elapsed + 1;
     int he = is_leader0 ? L.heartbeat_elapsed + 1 : L.heartbeat_elapsed;
+#if RAFT_CHAOS
+    if (!tick) {
+      ee = L.election_elapsed;
+      he = L.heartbeat_elapsed;
+    }
+#endif
     fire_hup = !is_leader0 && rd.promotable() && ee >= L.randomized_election_timeout;
+#if RAFT_CHAOS
+    fire_hup = fire_hup && tick;
+    const bool lead_etick = is_leader0 && ee >= c.election_tick && tick;
+#else
     const bool lead_etick = is_leader0 && ee >= c.election_tick;
+#endif
     fire_cq = lead_etick && c.check_quorum;
     if (fire_hup || lead_etick) ee = 0;
     fire_beat = is_leader0 && he >= c.heartbeat_tick;
+#if RAFT_CHAOS
+    fire_beat = fire_beat && tick;
+#endif
     if (fire_beat) he = 0;
     L.election_elapsed = ee;
     L.heartbeat_elapsed = he;
@@ -2375,7 +2472,195 @@ struct Thread {
   int pg_faults;         // pages of this lane's table mapped at page-in
   int pg_last, pg_snap;  // last and snap_index at page-in
 #endif
+#if RAFT_CHAOS
+  int ch_base, ch_reelect, ch_recommit;  // the probe columns (chaos/device.py PROBES)
+  bool ch_wiped;  // wiped in a round of this launch: its through rows are zeroed
+#endif
 };
+
+#if RAFT_CHAOS
+// ---- chaos/device.py: the chaos plane of a lane ---------------------------
+
+enum : uint32_t { SALT_DROP = 1, SALT_DUP = 5, SALT_TICK_SKEW = 9 };  // + channel
+
+RAFT_HD uint32_t mix32(uint32_t x) {  // lowbias32
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// chaos_bits(seed, round, site, salt) and _decide: true with probability
+// num / 2^16
+RAFT_HD bool decide(uint32_t seed, int rnd, uint32_t idx, uint32_t salt, int num) {
+  const uint32_t x = idx * 0x9E3779B9u + (uint32_t)rnd * 0x85EBCA6Bu + seed + salt * 0xC2B2AE35u;
+  return num > 0 && (int)(mix32(x) & 0xFFFFu) < num;
+}
+
+RAFT_HD const int *knob(const Args &a, int k) { return (const int *)a.p[P_CH_KNOB + k]; }
+// the chaos scalars: the launch's first round, heal_round, the seed
+struct ChaosScalars {
+  int round, heal;
+  uint32_t seed;
+};
+RAFT_HD ChaosScalars chaos_scalars(const Args &a) {
+  return {*(const int *)a.p[P_CH_ROUND], *(const int *)a.p[P_CH_HEAL],
+          *(const uint32_t *)a.p[P_CH_SEED]};
+}
+
+// state.py wipe_volatile on the lane's registers and ring columns (every
+// index a loop constant); the through rows pri_ctx / pri_from are zeroed
+// at the store
+RAFT_HD void wipe_lane(Lane &L, const Cfg &c) {
+  L.state = FOLLOWER;
+  L.lead = L.lead_transferee = L.uncommitted_size = 0;
+  L.election_elapsed = L.heartbeat_elapsed = 0;
+  L.rng = rng_next(L.rng);
+  L.randomized_election_timeout = draw_timeout(L.rng, c.election_tick);
+  L.stabled = L.last;
+  L.applying = L.applied;
+  L.pending_snap_index = L.pending_snap_term = 0;
+  L.snap_unavailable = false;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    L.pr_match[j] = 0;
+    L.pr_next[j] = 1;
+    L.pr_state[j] = L.pr_pending_snapshot[j] = L.votes[j] = 0;
+    L.pr_recent_active[j] = L.pr_msg_app_flow_paused[j] = false;
+    L.infl_start[j] = L.infl_count[j] = L.infl_total_bytes[j] = 0;
+    RAFT_UNROLL
+    for (int f = 0; f < F; ++f) L.infl_index[j][f] = L.infl_bytes[j][f] = 0;
+  }
+  RAFT_UNROLL
+  for (int r = 0; r < R; ++r) {
+    L.ro_ctx[r] = L.ro_from[r] = L.ro_index[r] = L.ro_seq[r] = 0;
+    L.rs_ctx[r] = L.rs_index[r] = 0;
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) L.ro_acks[r][j] = 0;
+  }
+  L.ro_next_seq = 1;
+  L.rs_count = 0;
+}
+
+// begin_round for lane i in round k of the launch: the crash-window wipe,
+// the cut of each channel's inbound cells (the mute cut `th.cut`, the
+// partition masks, a down endpoint, a drop draw per edge), whether the lane
+// is down, its tick mask, and the probe's baseline at the heal round
+RAFT_HD void chaos_begin(const Args &a, long long i, int k, Thread &th, uint32_t (&cut)[4],
+                         bool &crashed, bool &tick) {
+  const ChaosScalars sc = chaos_scalars(a);
+  const int rnd = sc.round + k;
+  const uint32_t seed = sc.seed;
+  const int *crash_at = knob(a, CH_crash_at), *restart_at = knob(a, CH_restart_at);
+  if (rnd == crash_at[i] || rnd == restart_at[i]) {
+    wipe_lane(th.L, th.c);
+    th.ch_wiped = true;
+  }
+  crashed = rnd >= crash_at[i] && rnd < restart_at[i];
+  const long long base = i - i % V;
+  const int recv = knob(a, CH_part_recv)[i];
+  uint32_t cells = th.cut;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    const bool down = rnd >= crash_at[base + j] && rnd < restart_at[base + j];
+    if ((knob(a, CH_part_send)[base + j] & recv) == 0 || crashed || down) cells |= 1u << j;
+  }
+  RAFT_UNROLL
+  for (int ch = 0; ch < 4; ++ch) cut[ch] = cells;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    const int num = knob(a, CH_drop_num)[i * V + j];
+    RAFT_UNROLL
+    for (int ch = 0; ch < 4; ++ch)
+      if (decide(seed, rnd, (uint32_t)(i * V + j), SALT_DROP + ch, num)) cut[ch] |= 1u << j;
+  }
+  tick = !crashed && !decide(seed, rnd, (uint32_t)i, SALT_TICK_SKEW, knob(a, CH_tick_skew_num)[i]);
+  if (rnd == sc.heal) th.ch_base = th.L.committed;
+}
+
+// end_round's duplicate redelivery: where the draw fires, cell j of the
+// outbox this round delivered (`prev`, untouched by the cuts) goes into
+// the empty cell j of the new outbox `out`, every field of the channel
+RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long i, int k) {
+  const ChaosScalars sc = chaos_scalars(a);
+  const int rnd = sc.round + k;
+  const uint32_t seed = sc.seed;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    const int num = knob(a, CH_dup_num)[i * V + j];
+    const uint32_t edge = (uint32_t)(i * V + j);
+    if (prev.rep_kind[j] != MSG_NONE && out.rep_kind[j] == MSG_NONE &&
+        decide(seed, rnd, edge, SALT_DUP + 0, num)) {
+      out.rep_kind[j] = prev.rep_kind[j];
+      out.rep_term[j] = prev.rep_term[j];
+      out.rep_index[j] = prev.rep_index[j];
+      out.rep_log_term[j] = prev.rep_log_term[j];
+      out.rep_commit[j] = prev.rep_commit[j];
+      out.rep_reject[j] = prev.rep_reject[j];
+      out.rep_reject_hint[j] = prev.rep_reject_hint[j];
+      out.rep_n_ents[j] = prev.rep_n_ents[j];
+      RAFT_UNROLL
+      for (int e = 0; e < E; ++e) {
+        out.rep_ent_term[j][e] = prev.rep_ent_term[j][e];
+        out.rep_ent_type[j][e] = prev.rep_ent_type[j][e];
+        out.rep_ent_bytes[j][e] = prev.rep_ent_bytes[j][e];
+      }
+      out.rep_snap_index[j] = prev.rep_snap_index[j];
+      out.rep_snap_term[j] = prev.rep_snap_term[j];
+    }
+    if (prev.hb_kind[j] != MSG_NONE && out.hb_kind[j] == MSG_NONE &&
+        decide(seed, rnd, edge, SALT_DUP + 1, num)) {
+      out.hb_kind[j] = prev.hb_kind[j];
+      out.hb_term[j] = prev.hb_term[j];
+      out.hb_commit[j] = prev.hb_commit[j];
+      out.hb_context[j] = prev.hb_context[j];
+    }
+    if (prev.vote_kind[j] != MSG_NONE && out.vote_kind[j] == MSG_NONE &&
+        decide(seed, rnd, edge, SALT_DUP + 2, num)) {
+      out.vote_kind[j] = prev.vote_kind[j];
+      out.vote_term[j] = prev.vote_term[j];
+      out.vote_index[j] = prev.vote_index[j];
+      out.vote_log_term[j] = prev.vote_log_term[j];
+      out.vote_reject[j] = prev.vote_reject[j];
+      out.vote_context[j] = prev.vote_context[j];
+    }
+    if (prev.vresp_kind[j] != MSG_NONE && out.vresp_kind[j] == MSG_NONE &&
+        decide(seed, rnd, edge, SALT_DUP + 3, num)) {
+      out.vresp_kind[j] = prev.vresp_kind[j];
+      out.vresp_term[j] = prev.vresp_term[j];
+      out.vresp_reject[j] = prev.vresp_reject[j];
+    }
+  }
+}
+
+// end_round's recovery probe for lane t after the round's barrier: its
+// group's flags (bit 0 a leader, bit 1 committed past the baseline, one
+// byte a lane) record the first armed round of each
+RAFT_HD void lane_probe(const Args &a, const Block &B, int k, int t, Thread &th) {
+  const ChaosScalars sc = chaos_scalars(a);
+  const int rnd = sc.round + k;
+  const uint8_t *f = B.flag() + (t - t % V);
+  uint32_t any = 0;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) any |= f[j];
+  if (rnd >= sc.heal) {
+    if (th.ch_reelect == NEVER && (any & 1u)) th.ch_reelect = rnd;
+    if (th.ch_recommit == NEVER && (any & 2u)) th.ch_recommit = rnd;
+  }
+}
+
+// a through row of lane i zeroed in the output (a wiped lane's pri_ctx,
+// pri_from)
+template <int K, typename ST>
+RAFT_HD void zero_row(const Args &a, long long i) {
+  using L = StateLeaf<K, ST>;
+  typename L::T e[L::X];
+  RAFT_UNROLL
+  for (int q = 0; q < L::X; ++q) e[q] = 0;
+  RowIO<typename L::T, L::X>::store((typename L::T *)a.p[P_STATE_OUT + K] + i * L::X, e);
+}
+#endif
 
 // lane i (thread t of the block): its carry into registers and its rings'
 // columns, its outbox row into fabric buffer 0, its config, sampler and
@@ -2397,6 +2682,12 @@ RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread
     for (int j = 0; j < V; ++j) th.cut |= uint32_t(mute[base + j] != 0) << j;
     if (mute[i]) th.cut = (1u << V) - 1;
   }
+#if RAFT_CHAOS
+  th.ch_base = ((const int *)a.p[P_CH_PROBE_IN + CH_base_committed])[i];
+  th.ch_reelect = ((const int *)a.p[P_CH_PROBE_IN + CH_reelect_round])[i];
+  th.ch_recommit = ((const int *)a.p[P_CH_PROBE_IN + CH_recommit_round])[i];
+  th.ch_wiped = false;
+#endif
 }
 
 // round k of lane i (thread t): inbox in buffer k % 2, outbox in the other
@@ -2405,11 +2696,26 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   const int src = k & 1;
   const Fab in = inbox(B, src, t);
   const Fab out = outbox(B, src ^ 1, t);
+#if RAFT_CHAOS
+  // the cuts as masks read through the inbox: the senders' cells stay
+  // as sent, for their duplicate redelivery below
+  uint32_t cut[4];
+  bool crashed, tick;
+  chaos_begin(a, i, k, th, cut, crashed, tick);
+  InFab inb;
+  static_cast<Fab &>(inb) = in;
+  inb.rep_kind = KindCol{in.rep_kind.p, in.rep_kind.s, cut[0]};
+  inb.hb_kind = KindCol{in.hb_kind.p, in.hb_kind.s, cut[1]};
+  inb.vote_kind = KindCol{in.vote_kind.p, in.vote_kind.s, cut[2]};
+  inb.vresp_kind = KindCol{in.vresp_kind.p, in.vresp_kind.s, cut[3]};
+  inb.self_kind = KindCol{in.self_kind.p, in.self_kind.s, crashed ? 1u : 0u};
+#else
   // the mute cut, at the read: only this lane reads its inbound cells
   RAFT_UNROLL
   for (int j = 0; j < V; ++j)
     if ((th.cut >> j) & 1u)
       in.rep_kind[j] = in.hb_kind[j] = in.vote_kind[j] = in.vresp_kind[j] = MSG_NONE;
+#endif
   clear_fab(out);
   // the ops are read when a round applies them (not held across rounds)
   Ops ops;
@@ -2417,8 +2723,18 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
     load_ops(ops, a, i);
   else
     clear_ops(ops);
+#if RAFT_CHAOS
+  if (crashed) clear_ops(ops);  // a down lane takes no host ops
+  fused_round_lane(th.L, th.c, inb, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
+                   ev, tick);
+  chaos_dup(a, outbox(B, src, t), out, i, k);
+  // the probe's flags, before the storage boundary clamps committed
+  B.flag()[t] = uint8_t((th.L.state == LEADER ? 1u : 0u) |
+                        (th.L.committed > th.ch_base ? 2u : 0u));
+#else
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev);
+#endif
   // the carry crosses the storage boundary between rounds
   roundtrip_lane(th.L, out);
 }
@@ -2433,6 +2749,15 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
     ((int *)a.p[P_SAMP_INDEX_OUT])[i] = th.samp.index;
     ((int *)a.p[P_SAMP_ROUND_OUT])[i] = th.samp.round;
   }
+#if RAFT_CHAOS
+  ((int *)a.p[P_CH_PROBE_OUT + CH_base_committed])[i] = th.ch_base;
+  ((int *)a.p[P_CH_PROBE_OUT + CH_reelect_round])[i] = th.ch_reelect;
+  ((int *)a.p[P_CH_PROBE_OUT + CH_recommit_round])[i] = th.ch_recommit;
+  if (th.ch_wiped) {
+    zero_row<SL_pri_ctx, RAFT_ST_I32>(a, i);
+    zero_row<SL_pri_from, RAFT_ST_I32>(a, i);
+  }
+#endif
 }
 
 RAFT_HD int *acc_row(const Block &B, int k) { return B.acc(k & 1); }
@@ -2462,14 +2787,26 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
 }
 
 // round k's partials row from the block's sums, which are zeroed for
-// round k + 2 (threads tid of nth)
+// round k + 2 (threads tid of nth); the chaos build's row has its
+// recounts too
 RAFT_HD void write_partials(const Args &a, const Block &B, int k, long long blk,
                             long long n_blocks, int tid, int nth) {
   int *acc = acc_row(B, k);
   int *row = (int *)a.p[P_PARTIALS] + ((long long)k * n_blocks + blk) * kPartialWidth;
   for (int x = tid; x < kPartialWidth; x += nth) {
+#if RAFT_CHAOS
+    // the recounts after the metrics slots, or at 0 without metrics: lanes
+    // with a recorded round, over V (whole groups a block)
+    const bool met = (a.flags & F_METRICS) && x < kPartUsed;
+    const int xc = (a.flags & F_METRICS) ? kPartUsed : 0;
+    const bool ch = x >= xc && x < xc + kChaosPart;
+    const int from = ch ? kPartUsed + x - xc : x;
+    row[x] = met ? acc[x] : ch ? acc[from] / V : 0;
+    if (met || ch) acc[from] = 0;
+#else
     row[x] = x < kPartUsed ? acc[x] : 0;
     if (x < kPartUsed) acc[x] = 0;
+#endif
   }
 }
 
@@ -2685,6 +3022,21 @@ __device__ __forceinline__ void add_events(const Events &ev, int *acc, int t, in
   if (leader && s) atomicAdd(&acc[C_LAT_SUM], s);
 }
 
+#if RAFT_CHAOS
+// the chaos build's recounts: lanes with a recorded reelect / recommit
+// round, summed over the warp and added to the block's slots
+__device__ __forceinline__ void add_recounts(const Thread &th, int *acc, int t, int cta) {
+  const int live = cta - (t & ~31);
+  const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+  const int s0 = __reduce_add_sync(mask, th.ch_reelect != NEVER ? 1 : 0);
+  const int s1 = __reduce_add_sync(mask, th.ch_recommit != NEVER ? 1 : 0);
+  if ((t & 31) == 0) {
+    if (s0) atomicAdd(&acc[kPartUsed], s0);
+    if (s1) atomicAdd(&acc[kPartUsed + 1], s1);
+  }
+}
+#endif
+
 #if RAFT_PAGED
 // The exclusive prefix sum of x over the block's threads, and its total:
 // an inclusive scan within each warp by shuffles, then the warp totals
@@ -2741,7 +3093,7 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
   const long long blk = blockIdx.x, i = blk * cta + t;
   const bool metrics = a.flags & F_METRICS;
   const Block B{smem};
-  for (int x = t; x < 2 * kPartUsed; x += cta) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
+  for (int x = t; x < 2 * kAccN; x += cta) acc_row(B, x / kAccN)[x % kAccN] = 0;
   Thread th;
   lane_load(a, B, i, t, th);
 #if RAFT_PAGED
@@ -2756,7 +3108,16 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
     // this round's outbox and sums are complete, and every read of its
     // inbox (the next round's outbox) is done
     __syncthreads();
+#if RAFT_CHAOS
+    // the probe reads its group's flags; once every lane has read them and
+    // added its recounts, the row is written (and the flags free again)
+    lane_probe(a, B, k, t, th);
+    add_recounts(th, acc_row(B, k), t, cta);
+    __syncthreads();
+    write_partials(a, B, k, blk, gridDim.x, t, cta);
+#else
     if (metrics) write_partials(a, B, k, blk, gridDim.x, t, cta);
+#endif
   }
 #if RAFT_PAGED
   page_out_block(a, B, blk, i, t, cta, th);  // sets ERR_PAGE_EXHAUSTED before the store
@@ -2830,7 +3191,7 @@ int round_host(const Args &a, int cta) {
   const Block B{(unsigned char *)buf.data()};
   std::vector<Thread> th(cta);
   for (long long blk = 0; blk < n_blocks; ++blk) {
-    for (int x = 0; x < 2 * kPartUsed; ++x) acc_row(B, x / kPartUsed)[x % kPartUsed] = 0;
+    for (int x = 0; x < 2 * kAccN; ++x) acc_row(B, x / kAccN)[x % kAccN] = 0;
     for (int t = 0; t < cta; ++t) {
       lane_load(a, B, blk * cta + t, t, th[t]);
 #if RAFT_PAGED
@@ -2847,8 +3208,17 @@ int round_host(const Args &a, int cta) {
         if (ev.bucket >= 0) acc[C_HIST0 + ev.bucket] += 1;
         acc[C_LAT_SUM] += ev.lat;
       }
+#if RAFT_CHAOS
+      for (int t = 0; t < cta; ++t) {
+        lane_probe(a, B, k, t, th[t]);
+        acc[kPartUsed] += th[t].ch_reelect != NEVER;
+        acc[kPartUsed + 1] += th[t].ch_recommit != NEVER;
+      }
+      for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
+#else
       if (metrics)
         for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
+#endif
     }
 #if RAFT_PAGED
     // page_out_block, its barrier and scan as loops over the block's lanes
@@ -2893,6 +3263,10 @@ extern "C" long long raft_round_smem() { return raft::Block::bytes; }
 
 // 1 for the diet-v2 build (the packed carry in device memory), else 0.
 extern "C" int raft_round_diet() { return RAFT_DIET; }
+
+// 1 for the chaos build (its knob, probe and scalar pointers close the
+// table), else 0.
+extern "C" int raft_round_chaos() { return RAFT_CHAOS; }
 
 // The paged build's geometry {1, WRES, PE, M}, or {0, 0, 0, 0}.
 extern "C" void raft_round_paged(long long *out) {

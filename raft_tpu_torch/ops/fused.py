@@ -17,10 +17,13 @@ updated functionally (new tensors each round); nothing is written in place.
 
 Of the JAX round's optional planes metrics, the diet-v2 packed carry
 (`diet=True`: state.pack_state / pack_fabric between dispatches, and
-store_carry / load_carry around every round) and the paged entry log
+store_carry / load_carry around every round), the paged entry log
 (`paged=True`, ops/paged.py: a resident tail plus a page pool between
-dispatches, or with `paged_inkernel=True` around every round) are ported;
-chaos, lease, trace, tier, straddle and fused_ids are not (ROADMAP).
+dispatches, or with `paged_inkernel=True` around every round) and the
+chaos plane (`chaos=True`, chaos/device.py: drops, duplicates, partitions,
+tick skew and crashes around every round, and the recovery probe) are
+ported; lease, trace, tier, straddle and fused_ids are not, nor chaos
+together with paging (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.chaos import device as chmod
 from raft_tpu_torch.config import Shape, resolve_device
 from raft_tpu_torch.messages import empty_batch
 from raft_tpu_torch.metrics import device as metmod
@@ -69,7 +73,7 @@ NONE = int(MT.MSG_NONE)
 
 # Planes of the JAX round that this package does not have yet.
 PLANES_NOT_PORTED = (
-    "chaos", "lease", "trace", "tier", "straddle", "fused_ids",
+    "lease", "trace", "tier", "straddle", "fused_ids",
 )
 
 
@@ -539,13 +543,16 @@ def fused_round(
     do_tick: bool = True,
     auto_propose: bool = False,
     auto_compact_lag: int | None = None,
+    tick_mask=None,
     metrics: metmod.MetricsState | None = None,
 ):
     """One complete synchronous round for every lane, on the fat (int32)
     state and the routed inbox. Returns (state, outbox fabric), or
     (state, fabric, metrics) when `metrics` is given. Phase by phase a port
     of raft_tpu/ops/fused.py fused_round; comments there cite the
-    reference."""
+    reference. tick_mask: optional [N] bool from the chaos plane; a lane
+    where it is False skips this round's tick (its clocks hold, and no
+    election, check-quorum or heartbeat tick fires)."""
     n, v = state.prs_id.shape
     e = inb.rep.ent_term.shape[-1]
     dev = state.term.device
@@ -578,15 +585,23 @@ def fused_round(
         is_leader0 = state.state == StateType.LEADER
         ee = state.election_elapsed + 1
         he = torch.where(is_leader0, state.heartbeat_elapsed + 1, state.heartbeat_elapsed)
+        if tick_mask is not None:
+            ee = torch.where(tick_mask, ee, state.election_elapsed)
+            he = torch.where(tick_mask, he, state.heartbeat_elapsed)
         fire_hup = (
             ~is_leader0
             & stepmod.promotable(state)
             & (ee >= state.randomized_election_timeout)
         )
         lead_etick = is_leader0 & (ee >= state.cfg.election_tick)
+        if tick_mask is not None:
+            fire_hup = fire_hup & tick_mask
+            lead_etick = lead_etick & tick_mask
         fire_cq = lead_etick & state.cfg.check_quorum
         ee = torch.where(fire_hup | lead_etick, 0, ee)
         fire_beat = is_leader0 & (he >= state.cfg.heartbeat_tick)
+        if tick_mask is not None:
+            fire_beat = fire_beat & tick_mask
         he = torch.where(fire_beat, 0, he)
         state = dataclasses.replace(
             state,
@@ -1208,10 +1223,11 @@ def fused_rounds(
     ops_first_round_only: bool = True,
     paged_inkernel: bool = False,
     metrics: metmod.MetricsState | None = None,
+    chaos: chmod.ChaosState | None = None,
     paged: pgmod.PagedLog | None = None,
 ):
     """n_rounds fused rounds (raft_tpu/ops/fused.py fused_rounds without the
-    straddle, chaos and trace planes). `ops` applies to the first round
+    straddle and trace planes). `ops` applies to the first round
     only unless ops_first_round_only=False. The carry enters and leaves in
     the slim storage dtypes, or packed when it comes packed
     (state.is_packed); each round widens to int32, routes, computes and
@@ -1224,7 +1240,13 @@ def fused_rounds(
     at the exit in place of the stale-slot scrub. With paged_inkernel
     (the twin of the pallas engine's in-kernel paging) page_in and
     page_out_cond run around every round instead, on the stored carry.
-    Returns (state, fab[, metrics][, paged])."""
+
+    chaos: the chaos carry (chaos/device.py); its faults apply around
+    every round, begin_round after routing and end_round (given the
+    outbox delivered this round) after the round, on the fat carry.
+    Returns (state, fab[, metrics][, chaos][, paged])."""
+    if chaos is not None and paged is not None:
+        raise NotImplementedError(CHAOS_PAGED)
     load, store = carry_boundary(state)
     state, fab = store(state, fab)
     inkernel = paged is not None and paged_inkernel
@@ -1246,6 +1268,9 @@ def fused_rounds(
             last_pre, snap_pre = state.last.to(I32), state.snap_index.to(I32)
         st_fat, fb_fat = load(state, fab)
         inb = route_fabric(fb_fat, v, mute, peer_mute=peer_mute)
+        tick_mask = None
+        if chaos is not None:
+            chaos, st_fat, inb, o, tick_mask = chmod.begin_round(chaos, st_fat, inb, o, v)
         res = fused_round(
             st_fat,
             inb,
@@ -1255,9 +1280,13 @@ def fused_rounds(
             do_tick=do_tick,
             auto_propose=auto_propose,
             auto_compact_lag=auto_compact_lag,
+            tick_mask=tick_mask,
             metrics=metrics,
         )
-        state, fab = store(res[0], res[1])
+        out_st, out_fb = res[0], res[1]
+        if chaos is not None:
+            chaos, out_fb = chmod.end_round(chaos, out_st, fb_fat, out_fb, v)
+        state, fab = store(out_st, out_fb)
         if metrics is not None:
             metrics = res[2]
         if inkernel:
@@ -1271,9 +1300,17 @@ def fused_rounds(
     out = (state, fab)
     if metrics is not None:
         out += (metrics,)
+    if chaos is not None:
+        out += (chaos,)
     if paged is not None:
         out += (paged,)
     return out
+
+
+# chaos with paging: the JAX kernel composes them (raft_tpu/ops/
+# pallas_round.py:589-730); the port refuses them together by name
+CHAOS_PAGED = ("the chaos plane with the paged entry log is not ported to "
+               "raft_tpu_torch yet (ROADMAP Queue 2: chaos branch x in-kernel paging)")
 
 
 class FusedCluster:
@@ -1290,7 +1327,11 @@ class FusedCluster:
     the window in a page pool (ops/paged.py; off by default, as
     RAFT_TPU_PAGED is); paged_inkernel: page around every round instead of
     every dispatch (on the pallas engine one allocation segment per lane
-    tile, the tile pinned here). engine: "xla"
+    tile, the tile pinned here). chaos: keep the chaos plane
+    (chaos/device.py; off by default, as RAFT_TPU_CHAOS is), its PRNG
+    stream drawn from seed + chaos_seed (RAFT_TPU_CHAOS_SEED); its knobs
+    are set with set_chaos, usually by a chaos/schedule.py ChaosRunner;
+    chaos with paged raises NotImplementedError. engine: "xla"
     (default: the eager round of this module) or "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
     kernel; tile_lanes, default pallas_round.default_tile, and
     rounds_per_call K, default 1, are checked here and raise TileError /
@@ -1309,6 +1350,8 @@ class FusedCluster:
         diet: bool = False,
         paged: bool = False,
         paged_inkernel: bool = False,
+        chaos: bool = False,
+        chaos_seed: int = 0,
         engine: str | None = None,
         tile_lanes: int | None = None,
         rounds_per_call: int | None = None,
@@ -1360,6 +1403,11 @@ class FusedCluster:
         self._no_ops = no_ops(n, self.device)
         self.metrics = metmod.init_metrics(n, self.device) if metrics else None
         self._metrics_acc = CounterAccumulator() if metrics else None
+        if chaos and paged:
+            raise NotImplementedError(CHAOS_PAGED)
+        self.chaos = (
+            chmod.init_chaos(n, n_voters, seed, chaos_seed, device=self.device) if chaos else None
+        )
         # round engine, resolved once here; a failing pallas launch raises
         # (no fallback to "xla")
         self.engine = plr.resolve_engine(engine)
@@ -1402,6 +1450,7 @@ class FusedCluster:
             ops_first_round_only=ops_first_round_only,
             paged_inkernel=self._paged_inkernel,
             metrics=self.metrics,
+            chaos=self.chaos,
             paged=self.paged,
         )
         ops = self._no_ops if ops is None else ops
@@ -1410,10 +1459,13 @@ class FusedCluster:
         else:
             res = fused_rounds(self.state, self.fab, ops, self.mute, **kw)
         self.state, self.fab = res[0], res[1]
+        rest = list(res[2:])
         if self.metrics is not None:
-            self.metrics = res[2]
+            self.metrics = rest.pop(0)
+        if self.chaos is not None:
+            self.chaos = rest.pop(0)
         if self.paged is not None:
-            self.paged = res[-1]
+            self.paged = rest.pop(0)
 
     # -- pallas engine (ops/pallas_round.py) ------------------------------
 
@@ -1484,8 +1536,8 @@ class FusedCluster:
 
     def _apply_rebase(self, mask, deltas):
         """Shift the carry's index space (ops/log.py rebase_indexes and
-        rebase_fabric) and the metrics plane's latency samples for the
-        masked lanes. The shift runs on the int32 view: x - d floored at 0
+        rebase_fabric), the metrics plane's latency samples and the chaos
+        plane's recovery baseline for the masked lanes. The shift runs on the int32 view: x - d floored at 0
         on a packed uint16 column would wrap first, so a packed carry is
         unpacked around it and packed again."""
         mj = torch.as_tensor(mask, device=self.device)
@@ -1506,6 +1558,8 @@ class FusedCluster:
         self._diet_budget = 0
         if self.metrics is not None:
             self.metrics = metmod.rebase_samples(self.metrics, mj, dj)
+        if self.chaos is not None:  # the recovery baseline moves with its lanes
+            self.chaos = chmod.rebase(self.chaos, mj, dj)
 
     # Automatic-rebase threshold of the packed uint16 index columns: when
     # the largest index a dispatch could reach would cross it, every group
@@ -1573,6 +1627,22 @@ class FusedCluster:
         m = self.mute.clone()
         m[torch.as_tensor(np.asarray(lanes, dtype=np.int64), device=self.device)] = on
         self.mute = m
+
+    def set_chaos(self, **cols):
+        """Overwrite chaos knob columns (chaos/device.py SETTABLE): [N] /
+        [N, V] arrays in this cluster's lane order, or scalars to
+        broadcast. Needs chaos=True at construction."""
+        if self.chaos is None:
+            raise RuntimeError("chaos plane is off: construct with chaos=True")
+        self.chaos = chmod.with_columns(self.chaos, **cols)
+
+    def chaos_columns(self, *names) -> dict:
+        """Chaos columns as numpy (default: chaos/device.py PROBE_FIELDS);
+        an empty dict when the plane is off."""
+        if self.chaos is None:
+            return {}
+        names = names or chmod.PROBE_FIELDS
+        return {k: getattr(self.chaos, k).cpu().numpy() for k in names}
 
     # -- inspection -------------------------------------------------------
 

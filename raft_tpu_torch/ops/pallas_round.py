@@ -23,6 +23,16 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   width PARTIAL_WIDTH (counter deltas, latency histogram deltas, lat_sum
   delta); the rows are summed outside the kernel. int32 wrap-add is
   associative, so the sum equals the eager round's, exactly.
+- Chaos (chaos/device.py): the knob columns go in, the probe columns in
+  and out, and the scalars round, heal_round and seed; on the
+  card the kernel's chaos build runs (round_cuda.target(chaos=True)). The
+  fault draws are functions of the global lane (the CUDA block's first
+  lane is the window's offset, as JAX's program_id * tile_lanes) and of
+  the absolute round, so blocks and K are invisible to the fault
+  timeline. The group recounts n_reelected / n_recommitted go into the
+  partials row after the metrics slots (or at 0 without metrics); they
+  are absolute, so only the last round's row, summed over blocks, lands
+  in the carry (`fold_chaos`).
 
 - Diet-v2: a packed carry (state.is_packed) enters, crosses every
   boundary between in-kernel rounds and leaves packed, through the
@@ -39,9 +49,10 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   MAX_SMEM, TileError otherwise); the default tile there is the engine's
   CUDA block (`paged_tile`).
 
-Not carried over from the JAX engine: the chaos and trace planes (they
-raise NotImplementedError at FusedCluster construction, as on the eager
-path), the Mosaic (tile, K) autotune sweep, interpret mode,
+Not carried over from the JAX engine: the trace plane (it raises
+NotImplementedError at FusedCluster construction, as on the eager path),
+chaos together with paging (NotImplementedError, ROADMAP), the Mosaic
+(tile, K) autotune sweep, interpret mode,
 and the engine fallback: a build or launch failure raises, and
 engine="pallas" never becomes "xla" on its own. The port reads no
 environment variables: the engine, tile and K are constructor arguments.
@@ -53,6 +64,7 @@ import dataclasses
 
 import torch
 
+from raft_tpu_torch.chaos import device as chmod
 from raft_tpu_torch.metrics import device as metmod
 from raft_tpu_torch.ops import fused as fmod
 from raft_tpu_torch.ops import log as lgmod
@@ -66,7 +78,8 @@ ENGINES = ("xla", "pallas")
 # Width of the per-(round, CUDA block) partials row (raft_tpu/ops/
 # pallas_round.py:109-120). Layout (int32): [0:C) counter deltas
 # (C = len(COUNTERS)), [C:C+B) latency histogram deltas (B = N_BUCKETS),
-# [C+B] lat_sum delta, then zeros.
+# [C+B] lat_sum delta, then [X], [X+1] the chaos recounts n_reelected and
+# n_recommitted of the block (X = C+B+1 with metrics, else 0), then zeros.
 PARTIAL_WIDTH = round_cuda.PARTIAL_WIDTH
 
 # Rounds per launch are bounded as in the JAX package, with the same
@@ -187,7 +200,7 @@ def check_paged_block(shape, tile_lanes: int) -> None:
 def round_kernel_ref(
     state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops=True,
     ops_round0_only=True, do_tick=True, auto_propose=False, auto_compact_lag=None,
-    paged=None,
+    paged=None, chaos=None,
 ):
     """What one launch of csrc/round.cu computes, in plain PyTorch: kc
     rounds of route_fabric -> fused_round on the carry, its storage
@@ -199,9 +212,16 @@ def round_kernel_ref(
     state's log leaves are resident tails) each run of `cta` lanes is an
     allocation segment: page_in on the stored carry at the top, the rounds
     on the full window, and page_out_cond after the last store, as
-    raft_tpu/ops/pallas_round.py:589-597 and :707-725 order them. Returns
-    (state, fab, sampler, partials [kc, n / cta, PARTIAL_WIDTH] or None),
-    and the PagedLog when paged, as round_cuda.round_call does."""
+    raft_tpu/ops/pallas_round.py:589-597 and :707-725 order them. With
+    `chaos` (a ChaosState: its round, heal_round and seed the launch's
+    scalars) chaos.begin_round after routing and end_round after each
+    round, over global lanes, as :616-700 order them, and each row's
+    chaos slots the block's recounts. Returns (state, fab, sampler,
+    partials [kc, n / cta, PARTIAL_WIDTH] or None), then the PagedLog
+    when paged and the probe columns (chaos.PROBES) when chaos, as
+    round_cuda.round_call does."""
+    if chaos is not None and paged is not None:
+        raise NotImplementedError(fmod.CHAOS_PAGED)
     n = state.term.shape[0]
     dev = state.term.device
     rows = n // cta
@@ -221,6 +241,7 @@ def round_kernel_ref(
         st, paged = pgmod.page_in(st, paged, segs)
         last_pre, snap_pre = st.last.to(I32), st.snap_index.to(I32)
     parts = []
+    ch = chaos
     for k in range(kc):
         if mt is not None:
             mt = dataclasses.replace(
@@ -232,18 +253,32 @@ def round_kernel_ref(
         o = ops if apply_ops and (k == 0 or not ops_round0_only) else zero_ops
         st, fb = load(st, fb)
         inb = fmod.route_fabric(fb, v, mute, peer_mute=peer_mute)
+        tick_mask = None
+        if ch is not None:
+            ch, st, inb, o, tick_mask = chmod.begin_round(ch, st, inb, o, v)
         res = fmod.fused_round(
             st, inb, o, mute, peer_mute=peer_mute, do_tick=do_tick,
-            auto_propose=auto_propose, auto_compact_lag=auto_compact_lag, metrics=mt,
+            auto_propose=auto_propose, auto_compact_lag=auto_compact_lag,
+            tick_mask=tick_mask, metrics=mt,
         )
-        st, fb = store(res[0], res[1])
+        st2, fb2 = res[0], res[1]
+        row = []
         if mt is not None:
             mt = res[2]
-            row = torch.cat([mt.counters, mt.hist, mt.lat_sum[:, None]], dim=1)
+            row += [mt.counters, mt.hist, mt.lat_sum[:, None]]
+        if ch is not None:
+            ch, fb2 = chmod.end_round(ch, st2, fb, fb2, v)
+            # the block's recounts: lanes with a recorded round, over V
+            row += [((getattr(ch, p) != chmod.NEVER).reshape(rows, cta).sum(1, dtype=I32)
+                     // v)[:, None] for p in ("reelect_round", "recommit_round")]
+        st, fb = store(st2, fb2)
+        if row:
+            row = torch.cat(row, dim=1)
             parts.append(torch.nn.functional.pad(row, (0, PARTIAL_WIDTH - row.shape[1])))
-    out = (st, fb, None, None)
-    if mt is not None:
-        out = (st, fb, (mt.samp_index, mt.samp_round), torch.stack(parts))
+    samp = (mt.samp_index, mt.samp_round) if mt is not None else None
+    out = (st, fb, samp, torch.stack(parts) if parts else None)
+    if ch is not None:
+        return out + (tuple(getattr(ch, p) for p in chmod.PROBES),)
     if paged is None:
         return out
     can_skip = fab.rep.ent_term.shape[-1] <= paged.w_res
@@ -257,12 +292,13 @@ def round_kernel_ref(
 
 
 def fold_partials(metrics, sampler, parts, kc: int):
-    """The metrics carry after one launch of kc rounds: the partials rows of
-    every round and block summed into the counters (int32 wrap-add is
-    associative, so this equals kc sequential adds), the sampler columns
-    the launch wrote, and the round counter advanced by kc."""
+    """The metrics carry after one launch of kc rounds: the metrics slots of
+    the partials rows of every round and block summed into the counters
+    (int32 wrap-add is associative, so this equals kc sequential adds),
+    the sampler columns the launch wrote, and the round counter advanced
+    by kc."""
     nc, nb = len(metmod.COUNTERS), metmod.N_BUCKETS
-    dsum = parts.sum(dim=(0, 1), dtype=I32)
+    dsum = parts[..., : nc + nb + 1].sum(dim=(0, 1), dtype=I32)
     return dataclasses.replace(
         metrics,
         counters=metrics.counters + dsum[:nc],
@@ -271,6 +307,23 @@ def fold_partials(metrics, sampler, parts, kc: int):
         round_ctr=metrics.round_ctr + kc,
         samp_index=sampler[0],
         samp_round=sampler[1],
+    )
+
+
+def chaos_slot(metrics: bool) -> int:
+    """The partials column of n_reelected (n_recommitted the next one)."""
+    return len(metmod.COUNTERS) + metmod.N_BUCKETS + 1 if metrics else 0
+
+
+def fold_chaos(chaos, probes, parts, kc: int, metrics: bool):
+    """The chaos carry after one launch of kc rounds: the probe columns the
+    launch wrote, the recounts of its last round's row summed over blocks
+    (absolute counts: the last row wins), and the round advanced by kc."""
+    x = chaos_slot(metrics)
+    last = parts[kc - 1].sum(dim=0, dtype=I32)
+    return dataclasses.replace(
+        chaos, **dict(zip(chmod.PROBES, probes)),
+        n_reelected=last[x], n_recommitted=last[x + 1], round=chaos.round + kc,
     )
 
 
@@ -290,13 +343,16 @@ def pallas_rounds(
     ops_first_round_only: bool = True,
     paged_inkernel: bool = False,
     metrics: metmod.MetricsState | None = None,
+    chaos: chmod.ChaosState | None = None,
     paged: pgmod.PagedLog | None = None,
 ):
     """n_rounds fused rounds as launches of K = rounds_per_call rounds each,
     plus one remainder launch when K does not divide n_rounds. Same
     contract and trajectory as ops/fused.py fused_rounds (module doc).
-    Returns (state, fab[, metrics][, paged])."""
+    Returns (state, fab[, metrics][, chaos][, paged])."""
     validate_round_plan(rounds_per_call)
+    if chaos is not None and paged is not None:
+        raise NotImplementedError(fmod.CHAOS_PAGED)
     state, fab = fmod.carry_boundary(state)[1](state, fab)
     inkernel = paged is not None and paged_inkernel
     if paged is not None and not inkernel:
@@ -316,7 +372,8 @@ def pallas_rounds(
         # one tile is one allocation segment, and on the card one CUDA block
         cta = tile_lanes
     else:
-        cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v))
+        cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v),
+                                   chaos=chaos is not None)
 
     kc = max(1, min(rounds_per_call, n_rounds)) if n_rounds else 1
     n_full, rem = divmod(n_rounds, kc)
@@ -331,13 +388,15 @@ def pallas_rounds(
             ops_round0_only=ops_first_round_only,
             do_tick=do_tick, auto_propose=auto_propose,
             auto_compact_lag=auto_compact_lag, paged=paged if inkernel else None,
+            chaos=chaos,
         )
+        state, fab, sampler, parts = out[:4]
         if inkernel:
-            state, fab, sampler, parts, paged = out
-        else:
-            state, fab, sampler, parts = out
+            paged = out[4]
         if metrics is not None:
             metrics = fold_partials(metrics, sampler, parts, k)
+        if chaos is not None:
+            chaos = fold_chaos(chaos, out[4], parts, k, metrics is not None)
     if paged is not None and not inkernel:
         state, paged = pgmod.page_out(state, paged)
     elif paged is None:
@@ -346,6 +405,8 @@ def pallas_rounds(
     res = (state, fab)
     if metrics is not None:
         res += (metrics,)
+    if chaos is not None:
+        res += (chaos,)
     if paged is not None:
         res += (paged,)
     return res

@@ -10,7 +10,8 @@ The launches are counted in `KERNELS["round_kernel"].launches`, those of
 the diet-v2 build (a packed carry, state.is_packed) in
 `KERNELS["round_kernel_diet"].launches`, and those of the paged builds (a
 `paged=` sidecar: in-kernel paging) in `round_kernel_paged` and
-`round_kernel_paged_diet`.
+`round_kernel_paged_diet`, and those of the chaos builds (a `chaos=`
+ChaosState) in `round_kernel_chaos` and `round_kernel_chaos_diet`.
 
 | kernel                  | replaces (raft_tpu/ops/pallas_round.py)            |
 | round_kernel            | make_call(kc).kernel :564, pl.pallas_call :745     |
@@ -19,6 +20,9 @@ the diet-v2 build (a packed carry, state.is_packed) in
 | round_kernel_paged      | the same, its in-kernel paging branch :589-597,    |
 |                         | :711-725                                           |
 | round_kernel_paged_diet | the paging branch on the packed carry              |
+| round_kernel_chaos      | the same, its chaos branch :616-634, :670-700,     |
+|                         | :728-730 (fold :826-834)                           |
+| round_kernel_chaos_diet | the chaos branch on the packed carry               |
 
 The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
@@ -41,6 +45,12 @@ the plan's RAFT_WRES, RAFT_PE, RAFT_M) takes the resident [N, W_res] log
 rows and the PagedLog leaves, in and out; a CUDA block is one allocation
 segment, so the block is the engine's lane tile and the pool's rows per
 block are a runtime dimension.
+
+Chaos (chaos/device.py, `chaos=` given): the chaos build (-DRAFT_CHAOS=1)
+takes seven knob columns (RAFT_CHAOS_KNOBS), three probe columns in and
+out (RAFT_CHAOS_PROBES) and the scalars round, heal_round and seed (the
+ChaosState's own 0-d tensors), after the table's other pointers; the partials row is written with
+metrics or chaos on. Chaos with paging is refused (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -54,7 +64,8 @@ import typing
 import torch
 
 from raft_tpu_torch import build
-from raft_tpu_torch.ops.fused import Fabric, LocalOps
+from raft_tpu_torch.chaos import device as chmod
+from raft_tpu_torch.ops.fused import CHAOS_PAGED, Fabric, LocalOps
 from raft_tpu_torch.ops.paged import LEAVES, LOG_COLS
 from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
 from raft_tpu_torch.state import LaneConfig, RaftState, is_packed
@@ -67,13 +78,14 @@ CTA_TARGET = 96  # lanes per CUDA block the engine aims for (PERF.md, PR 3)
 MAX_SMEM = 232_448  # shared memory one block can use on the H100 (227 KB)
 PARTIAL_WIDTH = 128  # csrc/round.cu kPartialWidth
 PART_USED = 25  # csrc/round.cu kPartUsed
+CHAOS_PART = 2  # csrc/round.cu kChaosPart: the recount slots of the chaos build
 
 _P = ctypes.c_void_p
 _ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
 KERNELS = {
     name: Kernel(name, "raft_round", _ROUND_ARGS, lib="round")
     for name in ("round_kernel", "round_kernel_diet", "round_kernel_paged",
-                 "round_kernel_paged_diet")
+                 "round_kernel_paged_diet", "round_kernel_chaos", "round_kernel_chaos_diet")
 }
 _SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1, "U16": 2, "U8": 1}
 _RINGS = ("WIN", "INFL", "READ", "READ_PEER")
@@ -131,6 +143,14 @@ def layout(diet: bool = False) -> dict[str, tuple[tuple[str, str, str], ...]]:
 
 
 @functools.cache
+def chaos_rows() -> dict[str, tuple[tuple[str, str, str], ...]]:
+    """csrc/round.cu's chaos tables: KNOBS and PROBES -> ((name, dtype,
+    shape), ...) in pointer order."""
+    text = (build.CSRC / "round.cu").read_text()
+    return {g: _table(text, f"RAFT_CHAOS_{g}") for g in ("KNOBS", "PROBES")}
+
+
+@functools.cache
 def dataclass_names() -> dict[str, tuple[str, ...]]:
     """The same groups from the dataclasses, what the packing follows;
     Fabric leaves as `channel_field` (`self_` -> `self`)."""
@@ -164,6 +184,12 @@ def _check_layout() -> None:
             raise RuntimeError(
                 f"csrc/round.cu RAFT_{g}_DIET names leaves that are not "
                 f"{g} leaves in field order: {packed}"
+            )
+    for g, names in (("KNOBS", chmod.KNOBS), ("PROBES", chmod.PROBES)):
+        rows = chaos_rows()[g]
+        if tuple(name for name, _, _ in rows) != names or any(dt != "I32" for _, dt, _ in rows):
+            raise RuntimeError(
+                f"csrc/round.cu RAFT_CHAOS_{g} differs from chaos/device.py {g}: {rows}"
             )
 
 
@@ -217,8 +243,9 @@ def paged_plan(paged) -> tuple[int, int, int]:
     return paged.w_res, paged.pool_term.shape[1], paged.pt.shape[1]
 
 
-def kernel_name(diet: bool, paged: bool) -> str:
-    return "round_kernel" + ("_paged" if paged else "") + ("_diet" if diet else "")
+def kernel_name(diet: bool, paged: bool, chaos: bool = False) -> str:
+    return ("round_kernel" + ("_paged" if paged else "") + ("_chaos" if chaos else "")
+            + ("_diet" if diet else ""))
 
 
 def shape_name(d: dict) -> str:
@@ -242,26 +269,32 @@ def stride(cta: int) -> int:
     return -(-cta // 32) * 32
 
 
-def target(d: dict, cta: int, diet: bool = False, plan=None) -> build.Target:
+def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
+           ) -> build.Target:
     """The library of the kernel for Shape d and blocks of cta lanes, of
-    the diet-v2 build (-DRAFT_DIET=1) with diet, and of the paged build
-    with plan = (W_res, PE, M)."""
+    the diet-v2 build (-DRAFT_DIET=1) with diet, of the paged build with
+    plan = (W_res, PE, M), and of the chaos build (-DRAFT_CHAOS=1) with
+    chaos."""
     paged = ()
     if plan is not None:
+        if chaos:
+            raise NotImplementedError(CHAOS_PAGED)
         paged = (("RAFT_PAGED", 1),) + tuple(zip(("RAFT_WRES", "RAFT_PE", "RAFT_M"), plan))
     return build.Target(
         "round",
         tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),)
-        + ((("RAFT_DIET", 1),) if diet else ()) + paged,
+        + ((("RAFT_DIET", 1),) if diet else ()) + paged
+        + ((("RAFT_CHAOS", 1),) if chaos else ()),
     )
 
 
-def smem_bytes(d: dict, cta: int, paged: bool = False) -> int:
+def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> int:
     """Shared memory of one CUDA block of `cta` lanes at Shape d
     (csrc/round.cu Block): with S = stride(cta), the rings (but THROUGH) at
-    stride S, two fabric buffers at stride S + 1, two metrics rows, and in
-    the paged build one row of warp totals; each region padded to 16
-    bytes."""
+    stride S, two fabric buffers at stride S + 1, two partials rows (with
+    the chaos build's two recount slots), in the paged build one row of
+    warp totals, and in the chaos build one probe-flag byte a lane; each
+    region padded to 16 bytes."""
     v, w, e, f, r = (d[k] for k in "vwefr")
     elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
              "READ_PEER": r * v, "ENT": v * e}
@@ -278,36 +311,42 @@ def smem_bytes(d: dict, cta: int, paged: bool = False) -> int:
     sf = sr + 1
     rings = pad(4 * count("STATE", _RINGS, 4) * sr) + pad(count("STATE", _RINGS, 1) * sr)
     fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
-    return rings + 2 * fab + 2 * pad(4 * PART_USED) + (pad(4 * (MAX_CTA // 32)) if paged else 0)
+    acc = pad(4 * (PART_USED + (CHAOS_PART if chaos else 0)))
+    return (rings + 2 * fab + 2 * acc + (pad(4 * (MAX_CTA // 32)) if paged else 0)
+            + (pad(sr) if chaos else 0))
 
 
 def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
-              target: int = CTA_TARGET) -> int:
+              target: int = CTA_TARGET, chaos: bool = False) -> int:
     """Lanes per CUDA block: the largest multiple of v that divides the tile
     and is at most `target` (else the smallest such multiple), at most
-    MAX_CTA and, given the Shape `dims`, within MAX_SMEM where one is."""
+    MAX_CTA and, given the Shape `dims`, within MAX_SMEM (of the chaos
+    build with chaos) where one is."""
     cands = [c for c in range(v, min(tile_lanes, MAX_CTA) + 1, v) if tile_lanes % c == 0]
     if not cands:
         raise ValueError(f"no CUDA block of <= {MAX_CTA} lanes covers whole groups of "
                          f"tile_lanes={tile_lanes}, v={v}")
     if dims is not None:  # where none fits, pack refuses the launch by name
-        cands = [c for c in cands if smem_bytes(dims, c) <= MAX_SMEM] or cands
+        cands = [c for c in cands if smem_bytes(dims, c, chaos=chaos) <= MAX_SMEM] or cands
     small = [c for c in cands if c <= target]
     return max(small) if small else min(cands)
 
 
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
-         ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None):
+         ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None, chaos=None):
     """Check every leaf and allocate the outputs; returns (pointer list,
     dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
-    and, given `paged`, the PagedLog out."""
+    and, given `paged`, the PagedLog out, given `chaos`, the probe columns
+    out."""
     _check_layout()
+    if chaos is not None and paged is not None:
+        raise NotImplementedError(CHAOS_PAGED)
     n = state.term.shape[0]
     d = dims_of(state, fab, v, paged)
     check_shape(d)
     if not 1 <= cta <= MAX_CTA or n % v or n % cta or cta % v:
         raise ValueError(f"bad lane layout: n={n}, v={v}, cta={cta}")
-    smem = smem_bytes(d, cta, paged is not None)
+    smem = smem_bytes(d, cta, paged is not None, chaos is not None)
     if smem > MAX_SMEM:
         raise ValueError(f"a CUDA block of cta={cta} lanes at {shape_name(d)} needs "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
@@ -352,13 +391,24 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
         for name, x in zip(("samp_index", "samp_round"), sampler):
             _check(name, x, I32, (n,), dev)
         _check("round_ctr", round_ctr, I32, (), dev)
+    ch_in = []
+    if chaos is not None:
+        for g in ("KNOBS", "PROBES"):
+            for name, _, kind in chaos_rows()[g]:
+                x = getattr(chaos, name)
+                _check(f"chaos.{name}", x, I32, _shape(kind, n, v, d), dev)
+                ch_in.append(x)
+        for name, dt in (("round", I32), ("heal_round", I32), ("seed", torch.uint32)):
+            x = getattr(chaos, name)
+            _check(f"chaos.{name}", x, dt, (), dev)
+            ch_in.append(x)
 
     st_out = [torch.empty_like(x) for x in groups["STATE"]]
     fab_out = [torch.empty_like(x) for x in groups["FABRIC"]]
     samp_out = [torch.empty_like(x) for x in sampler] if metrics else [None, None]
     parts = (
         torch.empty((kc, n // cta, PARTIAL_WIDTH), dtype=I32, device=dev)
-        if metrics else None
+        if metrics or chaos is not None else None
     )
 
     def ptr(x):
@@ -371,6 +421,10 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     ptrs += [ptr(x) for x in st_out + fab_out + samp_out] + [ptr(parts)]
     pg_out = [None if x is None else torch.empty_like(x) for x in pg_in]
     ptrs += [ptr(x) for x in pg_in + pg_out]
+    probe_out = []
+    if chaos is not None:  # the chaos build's pointers close the table
+        probe_out = [torch.empty_like(getattr(chaos, p)) for p in chmod.PROBES]
+        ptrs += [ptr(x) for x in ch_in + probe_out]
     flags = (
         (F_MUTE if mute is not None else 0) | (F_METRICS if metrics else 0)
         | (F_TICK if do_tick else 0) | (F_AUTO_PROPOSE if auto_propose else 0)
@@ -386,6 +440,8 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     )
     if paged is not None:
         outputs += (dataclasses.replace(paged, **dict(zip(PAGED_LEAVES, pg_out))),)
+    if chaos is not None:
+        outputs += (tuple(probe_out),)
     return ptrs, dims, flags, int(auto_compact_lag or 0), outputs
 
 
@@ -395,18 +451,20 @@ def as_c_args(ptrs, dims):
 
 def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
                apply_ops=True, ops_round0_only=True, do_tick=True,
-               auto_propose=False, auto_compact_lag=None, paged=None):
+               auto_propose=False, auto_compact_lag=None, paged=None, chaos=None):
     """kc rounds in one launch. state/fab: the slim carry, or the diet-v2
     packed carry (the diet build of the kernel runs it); sampler:
     (samp_index, samp_round) with metrics on, else None; round_ctr: the
     metrics round counter ([] int32 tensor); paged: the PagedLog of a paged
     carry (the state's log leaves its resident tails): each block of cta
-    lanes pages in, runs the rounds and pages out over its own sub-pool.
-    Returns (state, fab, sampler, partials [kc, n / cta, PARTIAL_WIDTH]
-    int32 or None), and the PagedLog when paged."""
+    lanes pages in, runs the rounds and pages out over its own sub-pool;
+    chaos: the ChaosState (chaos/device.py) whose faults the rounds apply,
+    from its round, heal_round and seed. Returns (state, fab, sampler,
+    partials [kc, n / cta, PARTIAL_WIDTH] int32 or None), then the
+    PagedLog when paged, or the probe columns (chaos.PROBES) when chaos."""
     kw = dict(v=v, kc=kc, cta=cta, apply_ops=apply_ops, ops_round0_only=ops_round0_only,
               do_tick=do_tick, auto_propose=auto_propose,
-              auto_compact_lag=auto_compact_lag, paged=paged)
+              auto_compact_lag=auto_compact_lag, paged=paged, chaos=chaos)
     if state.term.device.type == "cpu":
         from raft_tpu_torch.ops.pallas_round import round_kernel_ref
 
@@ -414,20 +472,21 @@ def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
     ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr, **kw)
     diet = is_packed(state)
     plan = paged_plan(paged) if paged is not None else None
-    t = library(dims_of(state, fab, v, paged), cta, diet, plan)
+    t = library(dims_of(state, fab, v, paged), cta, diet, plan, chaos is not None)
     arr, nptr, cdims = as_c_args(ptrs, dims)
-    kernel = KERNELS[kernel_name(diet, paged is not None)]
+    kernel = KERNELS[kernel_name(diet, paged is not None, chaos is not None)]
     kernel.launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
     return outputs
 
 
-def library(d: dict, cta: int, diet: bool = False, plan=None) -> build.Target:
+def library(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
+            ) -> build.Target:
     """Build (once) the kernel for Shape d and blocks of cta lanes (the
-    diet-v2 build with diet, the paged build with plan = (W_res, PE, M));
-    raises naming the Shape when its library does not build. Returns the
-    build target."""
-    t = target(d, cta, diet, plan)
-    name = kernel_name(diet, plan is not None)
+    diet-v2 build with diet, the paged build with plan = (W_res, PE, M),
+    the chaos build with chaos); raises naming the Shape when its library
+    does not build. Returns the build target."""
+    t = target(d, cta, diet, plan, chaos)
+    name = kernel_name(diet, plan is not None, chaos)
     try:
         KERNELS[name].fn(t)
     except RuntimeError as e:

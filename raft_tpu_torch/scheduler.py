@@ -26,9 +26,11 @@ class BlockedFusedCluster:
     """The driving API mirrors FusedCluster; per-lane injections address
     lanes in global order (block i owns lanes [i*B*V, (i+1)*B*V)). Runs on
     `cuda` unless `device` names another device. diet / paged /
-    paged_inkernel / engine / tile_lanes / rounds_per_call pass through to
-    every block (FusedCluster); a paged Shape's plan is checked for one
-    block's lanes before any block allocates."""
+    paged_inkernel / chaos / chaos_seed / engine / tile_lanes /
+    rounds_per_call pass through to every block (FusedCluster); a paged
+    Shape's plan is checked for one block's lanes before any block
+    allocates. Chaos columns are set and read in global lane order
+    (set_chaos, chaos_columns)."""
 
     def __init__(
         self,
@@ -115,6 +117,44 @@ class BlockedFusedCluster:
         """Global-lane LocalOps (same contract as FusedCluster.ops)."""
         return make_local_ops(self.g * self.v, self.device, **kw)
 
+    # -- the chaos plane (raft_tpu/scheduler.py:400-440) ------------------
+
+    @property
+    def chaos_enabled(self) -> bool:
+        return self.blocks[0].chaos is not None
+
+    def set_chaos(self, **cols):
+        """Chaos columns in global lane order: arrays whose first dimension
+        is the lane count are sliced per block, anything else (heal_round)
+        goes to every block."""
+        if not self.chaos_enabled:
+            raise RuntimeError("chaos plane is off: construct with chaos=True")
+        n, lpb = self.g * self.v, self.lanes_per_block
+        for i, b in enumerate(self.blocks):
+            b.set_chaos(**{
+                name: val[i * lpb : (i + 1) * lpb] if np.ndim(val) >= 1 and len(val) == n else val
+                for name, val in cols.items()
+            })
+
+    def chaos_columns(self, *names) -> dict:
+        """Chaos columns of all blocks: per-lane columns concatenated in
+        global lane order, the recounts n_reelected / n_recommitted summed,
+        other scalars (round, heal_round: the same in every block) from
+        block 0."""
+        if not self.chaos_enabled:
+            return {}
+        per = [b.chaos_columns(*names) for b in self.blocks]
+        out = {}
+        for name, v0 in per[0].items():
+            vals = [p[name] for p in per]
+            if np.ndim(v0) >= 1 and np.shape(v0)[0] == self.lanes_per_block:
+                out[name] = np.concatenate(vals)
+            elif name in ("n_reelected", "n_recommitted"):
+                out[name] = sum(int(x) for x in vals)
+            else:
+                out[name] = v0
+        return out
+
     # -- inspection (aggregate) -------------------------------------------
 
     def metrics_snapshot(self) -> dict | None:
@@ -163,6 +203,11 @@ class BlockedFusedCluster:
         return int(
             sum(b.state.committed.to(torch.int64).sum() for b in self.blocks)
         )
+
+    def leader_lanes(self) -> np.ndarray:
+        """Global lanes that are leaders, block after block."""
+        return np.concatenate([b.leader_lanes() + i * self.lanes_per_block
+                               for i, b in enumerate(self.blocks)])
 
     def leader_count(self) -> int:
         return int(

@@ -381,6 +381,72 @@ def where_u32(mask, new, old):
     return torch.where(mask, new.to(torch.int64), old.to(torch.int64)).to(U32)
 
 
+def wipe_volatile(state: RaftState, mask) -> RaftState:
+    """Crash-restart the masked lanes in place (raft_tpu/state.py:494-572):
+    what the WAL streams (HardState, log metadata, membership, cursors) and
+    the snapshot origin survive; every volatile field resets to the
+    fresh-boot follower defaults of init_state. The lane's LCG advances one
+    step and its election timeout is redrawn from it; error_bits are kept
+    (they are the test oracle, not raft state). mask: [N] bool. The JAX
+    state's lease fields are not in this port's RaftState."""
+    m = mask
+    mv = mask[:, None]
+    mvf = mask[:, None, None]
+
+    def z(x, mk=m):
+        return torch.where(mk, torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+    def full(x, value, mk=m):
+        return torch.where(mk, torch.full((), value, dtype=x.dtype, device=x.device), x)
+
+    rng2 = where_u32(m, rng_next(state.rng), state.rng)
+    rand2 = torch.where(
+        m,
+        draw_timeout(rng2, state.cfg.election_tick).to(state.randomized_election_timeout.dtype),
+        state.randomized_election_timeout,
+    )
+    return dataclasses.replace(
+        state,
+        state=full(state.state, int(StateType.FOLLOWER)),
+        lead=z(state.lead),
+        lead_transferee=z(state.lead_transferee),
+        uncommitted_size=z(state.uncommitted_size),
+        election_elapsed=z(state.election_elapsed),
+        heartbeat_elapsed=z(state.heartbeat_elapsed),
+        randomized_election_timeout=rand2,
+        rng=rng2,
+        # durability covered everything streamed; applying rejoins applied
+        stabled=torch.where(m, state.last, state.stabled),
+        applying=torch.where(m, state.applied, state.applying),
+        pending_snap_index=z(state.pending_snap_index),
+        pending_snap_term=z(state.pending_snap_term),
+        snap_unavailable=z(state.snap_unavailable),
+        pr_match=z(state.pr_match, mv),
+        pr_next=full(state.pr_next, 1, mv),
+        pr_state=z(state.pr_state, mv),
+        pr_pending_snapshot=z(state.pr_pending_snapshot, mv),
+        pr_recent_active=z(state.pr_recent_active, mv),
+        pr_msg_app_flow_paused=z(state.pr_msg_app_flow_paused, mv),
+        votes=z(state.votes, mv),
+        infl_index=z(state.infl_index, mvf),
+        infl_bytes=z(state.infl_bytes, mvf),
+        infl_start=z(state.infl_start, mv),
+        infl_count=z(state.infl_count, mv),
+        infl_total_bytes=z(state.infl_total_bytes, mv),
+        ro_ctx=z(state.ro_ctx, mv),
+        ro_from=z(state.ro_from, mv),
+        ro_index=z(state.ro_index, mv),
+        ro_acks=z(state.ro_acks, mvf),
+        ro_seq=z(state.ro_seq, mv),
+        ro_next_seq=full(state.ro_next_seq, 1),
+        pri_ctx=z(state.pri_ctx, mv),
+        pri_from=z(state.pri_from, mv),
+        rs_ctx=z(state.rs_ctx, mv),
+        rs_index=z(state.rs_index, mv),
+        rs_count=z(state.rs_count),
+    )
+
+
 def init_state(
     shape: Shape,
     ids: np.ndarray,

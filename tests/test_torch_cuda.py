@@ -258,3 +258,54 @@ def test_paged_tile_over_a_cuda_block_raises(card):
     with pytest.raises(TileError, match="MAX_CTA=256"):
         FusedCluster(172, 3, shape=shape, engine="pallas", tile_lanes=258, paged=True,
                      paged_inkernel=True)
+
+
+@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+def test_round_kernel_chaos_equals_plain(card, diet):
+    """The chaos build (-DRAFT_CHAOS=1) against round_kernel_ref(chaos=)
+    on the same card inputs, one launch of 4 rounds at V=3: drops and
+    duplicates of 0.3 on half the groups, tick skew 0.3, a lane down over
+    rounds 1-2 of the launch, an instant restart at round 3 and the heal
+    armed at round 2; every carry leaf, probe column and partials row, and
+    one launch counted."""
+    from raft_tpu_torch.chaos import device as tch
+    from raft_tpu_torch.ops import pallas_round as plr
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    v, g = 3, 32
+    n = g * v
+    shape = Shape(n_lanes=n, max_peers=v, log_window=16, max_msg_entries=2,
+                  max_inflight=2, max_read_index=2)
+    c = FusedCluster(g, v, seed=4, shape=shape, diet=diet, chaos=True)
+    c.run(20, auto_propose=True, auto_compact_lag=4)
+    r0 = int(c.chaos.round)
+    edge = np.where((np.arange(n) < n // 2)[:, None], tch.probability(0.3), 0)
+    edge = np.repeat(edge, v, axis=1).astype(np.int32)
+    crash = np.full(n, tch.NEVER, np.int32)
+    restart = crash.copy()
+    crash[1], restart[1] = r0 + 1, r0 + 3
+    crash[4], restart[4] = r0 + 3, r0 + 3
+    c.set_chaos(drop_num=edge, dup_num=edge, tick_skew_num=np.full(n, tch.probability(0.3)),
+                crash_at=crash, restart_at=restart, heal_round=r0 + 2,
+                reelect_round=np.full(n, tch.NEVER), recommit_round=np.full(n, tch.NEVER))
+    m = c.metrics
+    args = (c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    kw = dict(v=v, kc=4, cta=2 * v, do_tick=True, auto_propose=True, auto_compact_lag=4,
+              chaos=c.chaos)
+    name = rc.kernel_name(diet, False, True)
+    before = rc.KERNELS[name].launches
+    got = rc.round_call(*args, **kw)
+    want = plr.round_kernel_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert rc.KERNELS[name].launches == before + 1
+    names = rc.dataclass_names()
+    labels = ["state." + x for x in names["STATE"]] + ["fabric." + x for x in names["FABRIC"]]
+    labels += ["samp_index", "samp_round", "partials"] + ["chaos." + p for p in tch.PROBES]
+
+    def leaves(res):
+        st, fb, samp, parts, probes = res
+        return (interop.to_numpy_leaves(st)[: len(names["STATE"])] + interop.to_numpy_leaves(fb)
+                + [x.cpu().numpy() for x in (*samp, parts, *probes)])
+
+    for label, a, b in zip(labels, leaves(got), leaves(want), strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b), f"first differing leaf: {label}"

@@ -10,8 +10,12 @@ that rounds overflow the packed uint16 columns and the boundary's clamps
 and ERR_DIET_OVERFLOW bits show; and its paged builds (-DRAFT_PAGED=1,
 slim and diet) paging in the kernel over two-segment pools, one that
 holds every lane and one that exhausts, through launches that reallocate
-and launches that skip the allocator. Exact equality on every carry leaf,
-partials row and PagedLog leaf. Skips without a C++ compiler.
+and launches that skip the allocator; and its chaos builds
+(-DRAFT_CHAOS=1, slim and diet) under drops, duplicates, an asymmetric
+partition, tick skew, a crash window and an instant restart inside a
+launch, and a heal round armed inside one. Exact equality on every carry
+leaf, partials row, PagedLog leaf and chaos probe column. Skips without a
+C++ compiler.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from raft_tpu_torch import build, interop
+from raft_tpu_torch.chaos.device import NEVER, probability
 from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.ops import paged as pgmod
@@ -62,6 +67,8 @@ DIET_CASES = [(3, {}, BASE), (5, dict(pre_vote=True, check_quorum=True), WRAP)]
 # the paged builds' Shape (the bench widths) and plan (W_res, PE, M) at V=3
 PAGED_WEFR = (16, 2, 2, 2)
 PAGED_PLAN = (8, 4, 4)
+# the chaos builds' (v, (w, e, f, r)), slim and diet
+CHAOS_CASE = (3, BASE)
 
 
 @pytest.fixture(scope="module")
@@ -78,9 +85,9 @@ def host_lib(tmp_path_factory):
     libs = {}
 
     def start(key):
-        v, wefr, diet, plan = key
+        v, wefr, diet, plan, chaos = key
         d = dict(zip("vwefr", (v, *wefr)))
-        t = rc.target(d, 2 * v, diet, plan)
+        t = rc.target(d, 2 * v, diet, plan, chaos)
         so = root / f"{t.key}.so"
         proc = subprocess.Popen(
             [cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas",
@@ -89,13 +96,14 @@ def host_lib(tmp_path_factory):
         )
         procs[key] = (proc, so)
 
-    def get(v, wefr=BASE, diet=False, plan=None):
-        key = (v, wefr, diet, plan)
+    def get(v, wefr=BASE, diet=False, plan=None, chaos=False):
+        key = (v, wefr, diet, plan, chaos)
         if key not in libs:
             if not procs:
-                for k in dict.fromkeys([(cv, cw, False, None) for cv, _, cw in CASES]
-                                       + [(cv, cw, True, None) for cv, _, cw in DIET_CASES]
-                                       + [(3, PAGED_WEFR, d, PAGED_PLAN) for d in (False, True)]):
+                for k in dict.fromkeys([(cv, cw, False, None, False) for cv, _, cw in CASES]
+                                       + [(cv, cw, True, None, False) for cv, _, cw in DIET_CASES]
+                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, False) for d in (False, True)]
+                                       + [(*CHAOS_CASE, d, None, True) for d in (False, True)]):
                     start(k)
             if key not in procs:
                 start(key)
@@ -111,6 +119,8 @@ def host_lib(tmp_path_factory):
             lib.raft_round_diet.argtypes = []
             lib.raft_round_diet.restype = ctypes.c_int
             lib.raft_round_paged.argtypes = [ctypes.c_void_p]
+            lib.raft_round_chaos.argtypes = []
+            lib.raft_round_chaos.restype = ctypes.c_int
             libs[key] = lib
         return libs[key]
 
@@ -125,9 +135,13 @@ def _outputs(res):
     names = rc.dataclass_names()
     out = [("state." + n, x) for n, x in zip(names["STATE"], interop.to_numpy_leaves(st))]
     out += [("fabric." + n, x) for n, x in zip(names["FABRIC"], interop.to_numpy_leaves(fb))]
-    out += [("samp_index", samp[0].numpy()), ("samp_round", samp[1].numpy()),
-            ("partials", parts.numpy())]
-    if len(res) > 4:  # the PagedLog of a paged launch
+    if samp is not None:
+        out += [("samp_index", samp[0].numpy()), ("samp_round", samp[1].numpy())]
+    if parts is not None:
+        out += [("partials", parts.numpy())]
+    if len(res) > 4 and isinstance(res[4], tuple):  # the probe columns of a chaos launch
+        out += [("chaos." + n, x.numpy()) for n, x in zip(rc.chmod.PROBES, res[4])]
+    elif len(res) > 4:  # the PagedLog of a paged launch
         out += [("paged." + n, x) for n, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(res[4]))]
     return out
 
@@ -286,3 +300,55 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool):
     assert stats["paged_pages_dirty"] > 0 and stats["paged_alloc_skipped"] > skipped0
     exhausted = (c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0
     assert bool(exhausted.any()) == (pool > 0) and (stats["paged_exhausted"] > 0) == (pool > 0)
+
+
+@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+def test_chaos_lane_code_equals_plain_version(host_lib, diet):
+    """The chaos build against round_kernel_ref(chaos=) on the same carry
+    and ChaosState: drops and duplicates of 0.2 on two groups, tick skew
+    0.3, an asymmetric partition, a lane down for three rounds and an
+    instant restart, both inside launches, and the heal round armed inside
+    one; eight launches at K = 1 and 3, metrics on and off, the probe
+    columns and recounts compared too."""
+    v, wefr = CHAOS_CASE
+    lib = host_lib(v, wefr, diet, None, True)
+    assert lib.raft_round_chaos() == 1 and host_lib(v, wefr, diet).raft_round_chaos() == 0
+    d = dict(zip("vwefr", (v, *wefr)))
+    assert lib.raft_round_smem() == rc.smem_bytes(d, 2 * v, chaos=True) > rc.smem_bytes(d, 2 * v)
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v, wefr), device="cpu", diet=diet,
+                            chaos=True)
+    c.run(12, **RUN)
+    r0 = int(c.chaos.round)
+    lanes = np.arange(n)
+    edge = np.where((lanes < 2 * v)[:, None], probability(0.2), 0).repeat(v, 1).astype(np.int32)
+    send, recv = np.ones(n, np.int32), np.ones(n, np.int32)
+    send[2 * v], recv[2 * v] = 3, 2
+    crash, restart = np.full(n, NEVER, np.int32), np.full(n, NEVER, np.int32)
+    crash[1], restart[1] = r0 + 2, r0 + 5
+    crash[3 * v], restart[3 * v] = r0 + 4, r0 + 4
+    c.set_chaos(drop_num=edge, dup_num=edge, tick_skew_num=np.full(n, probability(0.3)),
+                part_send=send, part_recv=recv, crash_at=crash, restart_at=restart,
+                heal_round=r0 + 7, reelect_round=np.full(n, NEVER), recommit_round=np.full(n, NEVER))
+    for r in range(8):
+        metrics = r % 3 != 2
+        ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=5) if r % 4 == 0 else c._no_ops
+        m = c.metrics
+        samp = (m.samp_index, m.samp_round) if metrics else None
+        args = (c.state, c.fab, ops, c.mute, samp, m.round_ctr if metrics else None)
+        kc = 1 + 2 * (r % 2)
+        kw = dict(v=v, kc=kc, cta=2 * v, apply_ops=True, ops_round0_only=True, do_tick=True,
+                  auto_propose=True, auto_compact_lag=2, chaos=c.chaos)
+        want = plr.round_kernel_ref(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (diet, r, name)
+        c.state, c.fab = want[0], want[1]
+        if metrics:
+            c.metrics = plr.fold_partials(m, want[2], want[3], kc)
+        c.chaos = plr.fold_chaos(c.chaos, want[4], want[3], kc, metrics)
+    cols = c.chaos_columns()
+    assert cols["round"] == r0 + 16 and 0 < cols["n_reelected"] <= G
+    assert (cols["base_committed"] > 0).any() and (cols["recommit_round"] != NEVER).any()
