@@ -15,7 +15,9 @@ Phases:
            CUDA block, carry layout) the script uses (ROUND_BUILDS:
            W16/E2/F2/R2 at V=3 with the engine's 96-lane block and 6, 48 and
            192 lanes, at V=5 with 10, the diet-v2 build at V=3 with 96
-           and 6, and the paged builds, slim and diet, with 96 and 6),
+           and 6, the paged builds, slim and diet, with 96 and 6, the
+           chaos builds, slim and diet, with 96, 6 and 10, and the chaos
+           builds with paging, slim and diet, with 96),
            all started together: seconds of each, ptxas's
            registers, stack frame and spills of every kernel function
            (each quorum kernel at each V), and the round kernel's shared
@@ -87,13 +89,20 @@ Phases:
   round_kernel_paged  the paged builds (-DRAFT_PAGED=1, in-kernel paging)
            against round_kernel_ref: slim and diet, K in {1,8}, a full pool
            and one that exhausts, launches that reallocate and launches
-           that skip the allocator; every carry, partials and PagedLog leaf
+           that skip the allocator; every carry, partials and PagedLog
+           leaf; then allocation segments of 2, 32 and 64 CUDA blocks of
+           96 lanes on a grid of 2,048 blocks (65,536 groups: more blocks
+           than the card holds at once), with a pool that holds and one
+           that exhausts (round_kernel_paged_segments)
   parity_paged   the paged pallas engine on the card against the CPU,
            in-kernel and at the dispatch boundary
   main_pallas_paged  the paged main path at full width (run_main_paged,
-           check_main_paged): in-kernel, in-kernel diet, at the dispatch
-           boundary and flat; one host_state digest, the pool in use, no
-           error bit; the paged builds timed at its shape
+           check_main_paged): in-kernel at the default tile (3,072 lanes:
+           16 allocation segments of 32 CUDA blocks a block), in-kernel
+           at tile_lanes=96 (one block a segment), in-kernel diet, at the
+           dispatch boundary and flat; one host_state digest, the pool in
+           use, no error bit, each run's segment layout; the paged builds
+           timed at its shape over 3,072- and 96-lane segments
            (round_kernel_paged_timing, round_kernel_paged_diet_timing)
   round_kernel_chaos  the chaos builds (-DRAFT_CHAOS=1, slim and diet)
            against round_kernel_ref(chaos=): V in {3,5} x K in {1,4} x two
@@ -125,12 +134,42 @@ Phases:
            memory beside main_pallas's K=8 round_ms; the chaos builds timed
            at block 0 beside the slim build (round_kernel_chaos_timing,
            round_kernel_chaos_diet_timing)
+  round_kernel_chaos_paged  the chaos builds with paging (-DRAFT_CHAOS=1
+           -DRAFT_PAGED=1, slim and diet) against round_kernel_ref(paged=,
+           chaos=) over segments of two 96-lane blocks: K in {1,4} x seed 5
+           (metrics on) with a full pool and seed 17 (metrics off) with one
+           that exhausts, round_kernel_chaos's faults, proposals while the
+           logs outrun the resident tail, then launches that skip the
+           allocator; sha256 over every carry leaf, partials row, PagedLog
+           leaf and probe column, naming the first differing one
+  parity_chaos_paged  parity_chaos's 64-group, 33-round run with
+           paged=True (at compaction lag 12, so that the pool is used): on
+           the card eager at the boundary and around every round, pallas at
+           the boundary (K=3) and in the kernel (K=1 and K=3; the default
+           tile: one segment of two 96-lane blocks), the pallas runs slim
+           and diet; one host_state + chaos digest with the unpaged CPU
+           run, and the in-kernel K=3 runs' every leaf equal to the CPU's
+  main_pallas_chaos_paged  main_pallas_chaos's scenario at 1,048,576
+           groups with paged=True, paged_inkernel=True (page_window=8,
+           page_entries=4) at K=8, slim and diet, as 128 blocks of 8,192
+           groups with 65,536 pages a block (8,192 a 3,072-lane segment),
+           beside the unpaged chaos run of the same layout: one digest, one
+           probe snapshot, the same error lanes, no page exhausted;
+           round_kernel_chaos_paged(_diet) launches = what the segments'
+           chunks launch; round_ms, pool in use, peak memory; the builds
+           timed at block 0 (round_kernel_chaos_paged_timing,
+           round_kernel_chaos_paged_diet_timing)
+
+Every launch of a paged build waits with a deadline (`synchronize`): a
+segment barrier that does not complete fails the phase (the kernel also
+traps a wait over 10 s) instead of stalling the script.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -174,6 +213,7 @@ _B3 = dict(v=3, **BENCH_WIDTHS)
 _B5 = dict(v=5, **BENCH_WIDTHS)
 # ... and the chaos builds, slim and diet, at the engine block, the small
 # block and the second V's block
+# ... and the chaos builds with paging, slim and diet, at the engine block
 ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
                 (_B5, 10, False, None, False), (_B3, 48, False, None, False),
                 (_B3, 192, False, None, False), (_B3, 96, True, None, False),
@@ -181,7 +221,8 @@ ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
                 (_B3, 96, False, PAGED_PLAN, False), (_B3, 96, True, PAGED_PLAN, False),
                 (_B3, 6, False, PAGED_PLAN, False), (_B3, 6, True, PAGED_PLAN, False)] + [
     (d, cta, diet, None, True) for d, cta in ((_B3, 96), (_B3, 6), (_B5, 10))
-    for diet in (False, True)]
+    for diet in (False, True)] + [
+    (_B3, 96, diet, PAGED_PLAN, True) for diet in (False, True)]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -197,12 +238,26 @@ PAGED_BLOCK_GROUPS = 1 << 14
 PAGED_BLOCK_LANES = PAGED_BLOCK_GROUPS * VOTERS  # 49,152
 PAGED_POOLS = (49_152, 65_536)
 PAGED_SWEEP = 16  # rounds per Zipf sweep (benches/paged_ab.py AB_ROUNDS)
+# the chaos cell with paging: a block's pool holds at most 65,536 pages
+# (uint16 ids, paged.validate_page_plan), and the mixed scenario at lag 8
+# holds more than a page a lane (PERF.md, the cells), so 65,536-group
+# blocks (1/3 page a lane) exhaust: 128 blocks of 8,192 groups, 65,536
+# pages a block (2.67 a lane)
+CHAOS_PAGED_BLOCK_GROUPS = 1 << 13
+CHAOS_PAGED_POOL = 65_536
+# a launch of a paged build still running after this long fails its phase
+LAUNCH_DEADLINE_S = 120.0
 TIMED_ROUNDS = 32
 WARM_LIMIT = 40 * 16  # bench.py:76-84
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and the seconds since the
+    script started (t_s)."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def bench_shape(n_lanes: int) -> Shape:
@@ -251,13 +306,32 @@ def profiled_ms(fn, name: str, iters: int = 100, cold: bool = False) -> float:
     raise AssertionError(f"the profiler recorded no {name} kernel in three sessions")
 
 
-def raw_launch(kernel, *args, target=None):
+def synchronize(what: str, deadline_s: float = LAUNCH_DEADLINE_S) -> None:
+    """torch.cuda.synchronize with a deadline: an event recorded on the
+    current stream is polled, and work still running past the deadline (a
+    segment barrier that never completes) raises TimeoutError naming
+    `what` instead of stalling the script."""
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.perf_counter()
+    while not ev.query():
+        if time.perf_counter() - t0 > deadline_s:
+            raise TimeoutError(f"{what}: the card did not finish within {deadline_s} s")
+        time.sleep(0.0005)
+    torch.cuda.synchronize()
+
+
+def raw_launch(kernel, *args, target=None, segments=None):
     """A call of the kernel's C entry on the current stream with arguments
-    packed once: no checks, allocation or launch count."""
+    packed once: no checks, allocation or launch count. A paged build's
+    launch takes the next epoch of `segments` (the barrier's scratch) each
+    call, so that its segment barrier waits as it does on the main path."""
     fn = kernel.fn(target)
     stream = torch.cuda.current_stream().cuda_stream
 
     def go():
+        if segments is not None:
+            args[2][10] = segments.next_epoch()  # dims: the launch's epoch
         rc_ = fn(*args, stream)
         if rc_ != 0:
             raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc_}")
@@ -811,22 +885,6 @@ def round_ops(n: int, v: int, w: int, e: int, f: int, r: int) -> int:
     return per_lane * n
 
 
-def round_occupancy(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
-                    ) -> dict:
-    """csrc/round.cu raft_round_info for the Shape's library: shared memory
-    of a block of cta lanes, resident blocks per SM, registers and local
-    (stack) bytes per thread, as the runtime reports them."""
-    fn = build.load(rc.target(d, cta, diet, plan, chaos)).raft_round_info
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 4)()
-    err = fn(cta, out)
-    if err:
-        raise RuntimeError(f"raft_round_info({cta}) failed: CUDA error {err}")
-    return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2],
-                local_bytes=out[3])
-
-
 def ptxas_report(log: str) -> list[dict]:
     """Per kernel function of nvcc's -Xptxas -v output: registers, stack
     frame and spill bytes."""
@@ -868,7 +926,7 @@ def build_all() -> None:
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
     for b in ROUND_BUILDS:
-        rows[rc.target(*b).key].update(cta_lanes=b[1], **round_occupancy(*b))
+        rows[rc.target(*b).key].update(cta_lanes=b[1], **rc.occupancy(*b))
     emit("build", seconds=time.perf_counter() - t0, targets=rows)
 
 
@@ -926,7 +984,7 @@ def time_round_kernel(c, phase="round_kernel_timing"):
         if kc == 1:
             rows[kc].update(
                 profiled_ms=profiled_ms(go, "round_kernel", iters=20),
-                **round_occupancy(d, cta, diet),
+                **rc.occupancy(d, cta, diet),
                 wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
                 plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
             )
@@ -936,7 +994,7 @@ def time_round_kernel(c, phase="round_kernel_timing"):
     for cb in [] if diet else sorted({48, 96, 192, cta}):
         if tile % cb or cb % b.v or rc.smem_bytes(d, cb) > rc.MAX_SMEM:
             continue
-        sweep[cb] = round_occupancy(d, cb)
+        sweep[cb] = rc.occupancy(d, cb)
         for kc in (1, 8):
             go, outs = raw(kc, cb)
             go()
@@ -987,7 +1045,9 @@ def check_round_kernel_paged(dev):
                 ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=7)
                 plan = [k] * (9 // k) + ([9 % k] if 9 % k else [])
                 launches = [(kc, i == 0, False) for i, kc in enumerate(plan)] * 2
-                launches += [(k, False, True)] * 6
+                # quiet launches until the allocator is skipped: 6 rounds at
+                # K=1, 16 at K=8
+                launches += [(k, False, True)] * (6 if k == 1 else 2)
                 skip0 = int(c.paged.skipped.sum())
                 for i, (kc, first, quiet) in enumerate(launches):
                     m = c.metrics
@@ -996,8 +1056,9 @@ def check_round_kernel_paged(dev):
                               paged=c.paged)
                     args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round),
                             m.round_ctr)
-                    got, want = rc.round_call(*args, **kw), plr.round_kernel_ref(*args, **kw)
-                    torch.cuda.synchronize()
+                    got = rc.round_call(*args, **kw)
+                    synchronize(f"round_kernel_paged diet={diet} K={k} pool={pool} launch {i}")
+                    want = plr.round_kernel_ref(*args, **kw)
                     bad = first_difference(carry_leaves(*got[:4]) + paged_leaves(got[4]),
                                            carry_leaves(*want[:4]) + paged_leaves(want[4]))
                     if bad is not None:
@@ -1019,10 +1080,79 @@ def check_round_kernel_paged(dev):
          max_abs_err=0)
 
 
+# the multi-block segments: (CUDA blocks a segment, pool pages, whether it
+# exhausts) on 65,536 groups (2,048 blocks of 96 lanes); every SEG_HOT-th
+# group proposes, so that 65,536 pages hold the demand even of 192-lane
+# segments (64 pages) and 16,384 (16 a 192-lane segment) do not
+SEG_CASES = ((2, 65_536, False), (32, 65_536, False), (64, 65_536, False), (2, 16_384, True))
+SEG_HOT = 8
+
+
+def check_round_kernel_segments(dev):
+    """Allocation segments of several CUDA blocks on a grid of 2,048
+    blocks, more than the card holds at once: for each SEG_CASES entry a
+    65,536-group cluster paging in the kernel at a tile of that many
+    96-lane blocks elects (every group campaigns) and takes proposals on
+    every SEG_HOT-th group through the engine, then three launches (K=1
+    and K=8 with proposals, one quiet K=1) of the paged build with its
+    segment barrier against round_kernel_ref over the same segments; every
+    carry, partials and PagedLog leaf exact; the 16,384-page pool must
+    exhaust and the others must not."""
+    g, cta = MAIN_BLOCK_GROUPS, 96
+    n = g * VOTERS
+    rows = {}
+    for bps, pool, exhausts in SEG_CASES:
+        tile = bps * cta
+        c = FusedCluster(g, VOTERS, seed=5, device=dev, shape=paged_shape(n, pool),
+                         engine="pallas", tile_lanes=tile, paged=True, paged_inkernel=True)
+        if c._segments is None or c._paged_segs != n // tile:
+            raise AssertionError(f"round_kernel_paged_segments: tile {tile} is not {bps} "
+                                 f"blocks a segment")
+        lag = dict(auto_compact_lag=12)
+        hot = c.ops(prop_n={x * VOTERS: 2 for x in range(0, g, SEG_HOT)}, prop_bytes=5)
+        c.run(1, ops=c.ops(hup={x * VOTERS: True for x in range(g)}), **lag)
+        c.run(3, **lag)
+        for _ in range(8):
+            c.run(1, ops=hot, **lag)
+        synchronize(f"round_kernel_paged_segments bps={bps} warm-up")
+        for i, (kc, ops, quiet) in enumerate(((1, hot, False), (8, hot, False),
+                                               (1, None, True), (1, None, True))):
+            m = c.metrics
+            kw = dict(v=VOTERS, kc=kc, cta=cta, apply_ops=ops is not None, ops_round0_only=True,
+                      do_tick=not quiet, auto_propose=False, paged=c.paged, seg_lanes=tile, **lag)
+            args = (c.state, c.fab, ops or c._no_ops, c.mute, (m.samp_index, m.samp_round),
+                    m.round_ctr)
+            got = rc.round_call(*args, segments=c._segments, **kw)
+            synchronize(f"round_kernel_paged_segments bps={bps} pool={pool} launch {i}")
+            want = plr.round_kernel_ref(*args, **kw)
+            bad = first_difference(carry_leaves(*got[:4]) + paged_leaves(got[4]),
+                                   carry_leaves(*want[:4]) + paged_leaves(want[4]))
+            if bad is not None:
+                raise AssertionError(f"round_kernel_paged_segments bps={bps} pool={pool} "
+                                     f"launch {i}: first differing leaf {bad}")
+            c.state, c.fab, c.paged = got[0], got[1], got[4]
+            c.metrics = plr.fold_partials(m, got[2], got[3], kc)
+        stats = c.paged_stats()
+        exhausted = int(((c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0).sum())
+        rows[f"{bps}x{pool}"] = dict(
+            blocks_per_segment=bps, tile_lanes=tile, segments=n // tile, pool_pages=pool,
+            grid_blocks=n // cta, resident_blocks=rc.resident_blocks(
+                rc.dims_of(c.state, c.fab, VOTERS, c.paged), cta, dev, False, PAGED_PLAN),
+            exhausted_lanes=exhausted, pool_in_use=stats["paged_pool_in_use"],
+            skipped_lane_launches=stats["paged_alloc_skipped"], leaders=len(c.leader_lanes()))
+        if (exhausted > 0) != exhausts or stats["paged_pool_in_use"] == 0:
+            raise AssertionError(f"round_kernel_paged_segments bps={bps} pool={pool}: "
+                                 f"{rows[f'{bps}x{pool}']}")
+        del c
+        torch.cuda.empty_cache()
+    emit("round_kernel_paged_segments", lanes=n, cta_lanes=cta, cases=rows, max_abs_err=0)
+
+
 def check_parity_paged():
     """Paged pallas engine (K=3) on the card against the CPU, 64 groups x 33
-    rounds at compaction lag 12, in-kernel (the default tile, the engine's
-    CUDA block) and at the dispatch boundary: one sha256 over every state,
+    rounds at compaction lag 12, in-kernel (the default tile: one segment
+    of two 96-lane CUDA blocks) and at the dispatch boundary: one sha256
+    over every state,
     fabric, metrics and PagedLog leaf; the host_state of each equal to the
     unpaged CPU run's."""
     g = 64
@@ -1105,47 +1235,64 @@ def run_main_paged(dev, phase: str, pool: int, **paging):
     rounds = 0
     while c.leader_count() < MAIN_GROUPS:
         c.run(PAGED_SWEEP, auto_propose=True, auto_compact_lag=4)
+        synchronize(f"{phase}: warm-up")
         rounds += PAGED_SWEEP
         if rounds > WARM_LIMIT:
             raise RuntimeError(f"{phase}: election stalled at {c.leader_count()} leaders")
     sweeps = zipf_sweeps(c, 8)
     for s in range(4):
         c.run(PAGED_SWEEP, ops=sweeps[s], auto_compact_lag=12)
-    torch.cuda.synchronize()
+    synchronize(f"{phase}: shaping sweeps")
     t0 = time.perf_counter()
     for s in range(8):
         c.run(PAGED_SWEEP, ops=sweeps[s], auto_compact_lag=12)
-    torch.cuda.synchronize()
+    synchronize(f"{phase}: timed sweeps")
     dt = time.perf_counter() - t0
     rounds += 12 * PAGED_SWEEP
     launches = {name: k.launches for name, k in rc.KERNELS.items()}
     launches.update({name: k.launches for name, k in qc.KERNELS.items()})
     stats = c.paged_stats() or {}
     fields = dict(
-        **paging, pool_pages=pool, groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k,
+        **{k: x for k, x in paging.items() if k != "tile_lanes"}, pool_pages=pool,
+        groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k,
         block_groups=PAGED_BLOCK_GROUPS, rounds=rounds, setup_s=setup_s,
         timed_rounds=8 * PAGED_SWEEP, timed_s=dt, round_ms=1e3 * dt / (8 * PAGED_SWEEP),
         groups_ticks_per_s=MAIN_GROUPS * 8 * PAGED_SWEEP / dt, leaders=c.leader_count(),
         total_committed=c.total_committed(),
         segs_per_block=c.blocks[0]._paged_segs, tile_lanes=c.blocks[0]._pallas_tile,
+        blocks_per_segment=segment_blocks(c.blocks[0]),
         carry_bytes_per_lane=paged_bytes_per_lane(c), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches, expected_launches=rounds * c.k // 8, digest=host_digest(c), **stats,
     )
     return c, fields
 
 
+def segment_blocks(b) -> int | None:
+    """CUDA blocks per allocation segment of a FusedCluster paging in the
+    kernel (None otherwise)."""
+    if not b._paged_inkernel or b._pallas_tile is None:
+        return None
+    d = rc.dims_of(b.state, b.fab, b.v, b.paged)
+    return b._pallas_tile // rc.cta_lanes(b._pallas_tile, b.v, d, chaos=b.chaos is not None,
+                                          paged=True)
+
+
 def check_main_paged(dev):
-    """main_pallas_paged: the paged main path in-kernel (the default 96-lane
-    tile: 512 segments a block), in-kernel with diet=True, at the
-    dispatch boundary, and with paging off: one host_state digest, the pool
-    in use, no error bit; round_kernel_paged (round_kernel_paged_diet)
-    launched rounds x blocks / K times in the in-kernel runs, round_kernel
-    in the others. A pool that exhausts is printed and the run repeated on
-    the next pool of PAGED_POOLS. Returns ({run: fields}, the in-kernel
-    slim and diet clusters' timing rows)."""
+    """main_pallas_paged: the paged main path in-kernel (the default tile,
+    3,072 lanes: 16 segments of 32 CUDA blocks a block), in-kernel at
+    tile_lanes=96 (512 one-block segments a block), in-kernel with
+    diet=True, at the dispatch boundary, and with paging off: one
+    host_state digest, the pool in use, no error bit; round_kernel_paged
+    (round_kernel_paged_diet) launched rounds x blocks / K times in the
+    in-kernel runs, round_kernel in the others. A pool that exhausts is
+    printed and the run repeated on the next pool of PAGED_POOLS. Returns
+    ({run: fields}, the in-kernel slim and diet clusters' timing rows, over
+    3,072- and 96-lane segments)."""
     runs = {}
     timing = {}
     plans = (("inkernel", dict(paged=True, paged_inkernel=True), "round_kernel_paged"),
+             ("inkernel_t96", dict(paged=True, paged_inkernel=True, tile_lanes=96),
+              "round_kernel_paged"),
              ("inkernel_diet", dict(paged=True, paged_inkernel=True, diet=True),
               "round_kernel_paged_diet"),
              ("boundary", dict(paged=True), "round_kernel"),
@@ -1172,8 +1319,8 @@ def check_main_paged(dev):
             raise AssertionError(f"main_pallas_paged {name}: the pool was never used")
         emit(f"main_pallas_paged_{name}", **f)
         runs[name] = f
-        if name.startswith("inkernel"):
-            timing[kernel] = time_round_kernel_paged(c, f"{kernel}_timing")
+        if name in ("inkernel", "inkernel_diet"):
+            timing[kernel] = time_round_kernel_paged(c, f"{kernel}_timing", tiles=(96,))
         del c
         torch.cuda.empty_cache()
     digests = {name: f["digest"] for name, f in runs.items()}
@@ -1186,53 +1333,74 @@ def check_main_paged(dev):
     return runs, timing
 
 
-def time_round_kernel_paged(c, phase: str) -> dict:
+def time_round_kernel_paged(c, phase: str, tiles=()) -> dict:
     """The paged build at the main path's shape (block 0's resident carry
-    and PagedLog, its 96-lane tiles) against round_kernel_ref, K=1 and K=8,
-    timed on raw launches (arguments packed once) beside the plain version
+    and PagedLog) against round_kernel_ref, K=1 and K=8, over the cluster's
+    allocation segments and, for each of `tiles`, the same carry
+    resegmented to segments of that many lanes; timed on raw launches
+    (arguments packed once, a new epoch a launch) beside the plain version
     and the bytes bound: every input leaf read once and every output leaf
-    written once, the page table and the pool included."""
+    written once, the page table, the pool and the segment words
+    included."""
     b = c.blocks[0]
     diet = b._diet
     m = b.metrics
-    args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    n = b.shape.n_lanes
     d = rc.dims_of(b.state, b.fab, b.v, b.paged)
-    cta = b._pallas_tile
     plan = rc.paged_plan(b.paged)
     kern = rc.KERNELS[rc.kernel_name(diet, True)]
+    by_tile = {}
+    for tile in (b._pallas_tile, *tiles):
+        st, pg = b.state, b.paged
+        if tile != b._pallas_tile:
+            st, pg = tpg.resegment(st, pg, b._paged_segs, n // tile)
+        cta = rc.cta_lanes(tile, b.v, d, paged=True)
+        segments = rc.Segments(n // cta, st.term.device) if tile > cta else None
+        args = (st, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
 
-    def kw(kc):
-        return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True, do_tick=True,
-                    auto_propose=True, auto_compact_lag=12, paged=b.paged)
+        def kw(kc):
+            return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True,
+                        do_tick=True, auto_propose=True, auto_compact_lag=12, paged=pg,
+                        seg_lanes=tile)
 
-    rows = {}
-    for kc in (1, 8):
-        ptrs, dims, flags, lag, outs = rc.pack(*args, **kw(kc))
-        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
-        go = raw_launch(kern, arr, nptr, cdims, flags, lag, target=rc.target(d, cta, diet, plan))
-        go()
-        want = plr.round_kernel_ref(*args, **kw(kc))
-        torch.cuda.synchronize()
-        bad = first_difference(carry_leaves(*outs[:4]) + paged_leaves(outs[4]),
-                               carry_leaves(*want[:4]) + paged_leaves(want[4]))
-        if bad is not None:
-            raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
-                                 f"first differing leaf {bad}")
-        pg_bytes = sum(x.nbytes for _, x in paged_leaves(b.paged) + paged_leaves(outs[4]))
-        nbytes = round_bytes(args, outs[:4]) + pg_bytes
-        ms = cuda_ms(go, iters=50 if kc == 1 else 10)
-        rows[kc] = dict(max_abs_err=0, ms=ms, ms_per_round=ms / kc,
-                        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
-                        bytes=nbytes, paged_bytes=pg_bytes, rounds=kc,
-                        skipped_lanes=int((outs[4].skipped - b.paged.skipped).sum()))
-        if kc == 1:
-            rows[kc].update(
-                **round_occupancy(d, cta, diet, plan),
-                wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
-                plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
-            )
-        del go, outs, want
-    row = dict(rows[1], cta_lanes=cta, lanes=b.shape.n_lanes, k8=rows[8])
+        rows = {}
+        for kc in (1, 8):
+            ptrs, dims, flags, lag, outs = rc.pack(*args, segments=segments, **kw(kc))
+            arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+            go = raw_launch(kern, arr, nptr, cdims, flags, lag,
+                            target=rc.target(d, cta, diet, plan), segments=segments)
+            go()
+            synchronize(f"{kern.name} K={kc} tile={tile}")
+            want = plr.round_kernel_ref(*args, **kw(kc))
+            bad = first_difference(carry_leaves(*outs[:4]) + paged_leaves(outs[4]),
+                                   carry_leaves(*want[:4]) + paged_leaves(want[4]))
+            if bad is not None:
+                raise AssertionError(f"{kern.name} K={kc} tile={tile} at the main path's "
+                                     f"shape: first differing leaf {bad}")
+            pg_bytes = sum(x.nbytes for _, x in paged_leaves(pg) + paged_leaves(outs[4]))
+            seg_bytes = 0 if segments is None else 8 * (1 + n // cta)
+            nbytes = round_bytes(args, outs[:4]) + pg_bytes + seg_bytes
+            ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+            synchronize(f"{kern.name} K={kc} tile={tile} timing")
+            rows[kc] = dict(max_abs_err=0, ms=ms, ms_per_round=ms / kc,
+                            bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                            bytes=nbytes, paged_bytes=pg_bytes, segment_bytes=seg_bytes,
+                            rounds=kc, skipped_lanes=int((outs[4].skipped - pg.skipped).sum()))
+            if kc == 1 and tile == b._pallas_tile:
+                rows[kc].update(
+                    **rc.occupancy(d, cta, diet, plan),
+                    wrapper_ms=cuda_ms(lambda: rc.round_call(*args, segments=segments, **kw(1)),
+                                       iters=20),
+                    plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
+                )
+            del go, outs, want
+        by_tile[tile] = dict(rows[1], cta_lanes=cta, blocks_per_segment=tile // cta,
+                             k8=rows[8])
+    row = dict(by_tile[b._pallas_tile], tile_lanes=b._pallas_tile, lanes=n,
+               by_tile={str(t): {k: v for k, v in r.items() if k != "k8"}
+                        | {"k8_ms_per_round": r["k8"]["ms_per_round"],
+                           "k8_bound_ms": r["k8"]["bound_ms"]}
+                        for t, r in by_tile.items()})
     emit(phase, **row)
     return row
 
@@ -1371,16 +1539,17 @@ def check_slo_smoke():
         raise AssertionError(f"chaos_slo_smoke: recovery SLO {snap['slo']}, {snap['counters']}")
 
 
-def scenario(g: int, v: int):
-    """benches/chaos_soak.py:47-67, unchanged, on the port's ChaosSchedule:
-    quarters of the batch get partitions, leader kills and flapping links,
-    with drop, duplicate and skew noise over the kill and flap quarters."""
+def scenario(g: int, v: int, schedule=ChaosSchedule):
+    """benches/chaos_soak.py:47-67, unchanged, on the port's ChaosSchedule
+    (or another class with its methods): quarters of the batch get
+    partitions, leader kills and flapping links, with drop, duplicate and
+    skew noise over the kill and flap quarters."""
     q = max(1, g // 4)
     part = list(range(0, q))
     kill = list(range(q, 2 * q))
     flap = list(range(2 * q, 3 * q))
     sched = (
-        ChaosSchedule(g, v)
+        schedule(g, v)
         .rolling_partitions(at=24, waves=2, duration=10, settle=8)
         .partition(groups=part, at=70, duration=12)
         .kill_leaders(groups=kill, at=72, down=8)
@@ -1398,14 +1567,19 @@ def chaos_digest(c) -> str:
                             for b in c.blocks))
 
 
-def run_main_chaos(dev, **engine):
-    """The main path with chaos=True through the ChaosRunner at full width;
-    returns (cluster, row, probe snapshot)."""
+def run_main_chaos(dev, phase: str = "main_pallas_chaos", block_groups: int = MAIN_BLOCK_GROUPS,
+                   pool: int | None = None, **engine):
+    """The main path with chaos=True through the ChaosRunner at full width,
+    in blocks of block_groups groups, paged with `pool` pages a block when
+    given (page_window=8, page_entries=4); returns (cluster, row, probe
+    snapshot)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    lanes = block_groups * VOTERS
+    shape = bench_shape(lanes) if pool is None else paged_shape(lanes, pool)
     c = BlockedFusedCluster(
-        MAIN_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS, seed=42,
-        shape=bench_shape(BLOCK_LANES), round_chunk=8, device=dev, chaos=True, **engine,
+        MAIN_GROUPS, VOTERS, block_groups=block_groups, seed=42,
+        shape=shape, round_chunk=8, device=dev, chaos=True, **engine,
     )
     sched = scenario(MAIN_GROUPS, VOTERS)
     # after every segment: election safety, and the lanes whose error bits
@@ -1417,6 +1591,7 @@ def run_main_chaos(dev, **engine):
 
     def run_checked(rounds, **kw):
         run_segment(rounds, **kw)
+        synchronize(f"{phase}: a segment of {rounds} rounds")
         election_safety_batched(c)
         for i, b in enumerate(c.blocks):
             bits = b.state.error_bits.cpu().numpy()
@@ -1444,11 +1619,19 @@ def run_main_chaos(dev, **engine):
     rounds = segs[-1][1]
     k = engine["rounds_per_call"]
     diet = engine.get("diet", False)
-    name = rc.kernel_name(diet, False, True)
+    paged = engine.get("paged_inkernel", False)
+    name = rc.kernel_name(diet, paged, True)
     expect = c.k * sum(-(-step // k) for a, b in segs for step, _ in c.sweep(b - a))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    b0 = c.blocks[0]
+    layout = {}
+    if pool is not None:
+        layout = dict(pool_pages=pool, segs_per_block=b0._paged_segs,
+                      tile_lanes=b0._pallas_tile, blocks_per_segment=segment_blocks(b0),
+                      **(c.paged_stats() or {}))
     row = dict(
-        **engine, groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k, block_groups=MAIN_BLOCK_GROUPS,
+        **engine, **layout, groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k,
+        block_groups=block_groups,
         setup_s=setup_s, rounds=rounds, segments=len(segs), run_s=dt,
         round_ms=1e3 * dt / rounds, groups_ticks_per_s=MAIN_GROUPS * rounds / dt,
         schedule_s=schedule_s, counters=snap["counters"], slo=snap["slo"],
@@ -1458,24 +1641,25 @@ def run_main_chaos(dev, **engine):
         launches={n_: x for n_, x in launches.items() if x}, expected_launches=expect,
         peak_mem_gb=peak_gb, digest=chaos_digest(c),
     )
-    emit("main_pallas_chaos", **row)
+    emit(phase, **row)
     # the SLO's outcome here is the reference's: without PreVote a healed
     # member with a higher term disrupts its group, and at this seed and
     # width some groups stay leaderless past their window (the JAX package
     # and the port agree on the count at 256 and 1,024 groups, PERF.md
     # PR 7); it is reported, and held equal across the three runs
     if snap["counters"]["chaos_groups_probed"] <= 0:
-        raise AssertionError(f"main_pallas_chaos: no group probed: {snap['counters']}")
+        raise AssertionError(f"{phase}: no group probed: {snap['counters']}")
     # window capacity, not safety: an append past a follower's 16-entry
     # window is refused (ERR_WINDOW_OVERFLOW), and the commit index it
     # then carries is past its last (ERR_COMMIT_OUT_OF_RANGE)
     capacity = ERR_WINDOW_OVERFLOW | ERR_COMMIT_OUT_OF_RANGE
     if any(bits & ~capacity for bits in errors.values()):
-        raise AssertionError(f"main_pallas_chaos: error bits beyond window capacity: {errors}")
-    want = {name: expect, "joint_kernel": 0, rc.kernel_name(diet, False, False): 0}
+        raise AssertionError(f"{phase}: error bits beyond window capacity: {errors}")
+    want = {name: expect, "joint_kernel": 0, rc.kernel_name(diet, paged, False): 0,
+            rc.kernel_name(diet, not paged, True): 0}
     for kname, count in want.items():
         if launches[kname] != count:
-            raise AssertionError(f"main_pallas_chaos: {kname} launched {launches[kname]} times, "
+            raise AssertionError(f"{phase}: {kname} launched {launches[kname]} times, "
                                  f"expected {count}")
     return c, row, snap
 
@@ -1526,7 +1710,7 @@ def time_round_kernel_chaos(c, phase: str) -> dict:
                         bytes=nbytes, chaos_bytes=ch_bytes, rounds=kc)
         if kc == 1:
             rows[kc].update(
-                **round_occupancy(d, cta, diet, None, True),
+                **rc.occupancy(d, cta, diet, None, True),
                 wrapper_ms=cuda_ms(lambda: rc.round_call(*args, **kw(1)), iters=20),
                 plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
             )
@@ -1544,6 +1728,7 @@ def check_main_chaos(dev, k8_round_ms: float):
                          ("k1", dict(engine="pallas", rounds_per_call=1)),
                          ("k8_diet", dict(engine="pallas", rounds_per_call=8, diet=True))):
         c, runs[name], snaps[name] = run_main_chaos(dev, **engine)
+        synchronize(f"main_pallas_chaos {name}")
         if name == "k8":
             timing["round_kernel_chaos"] = time_round_kernel_chaos(c, "round_kernel_chaos_timing")
         if name == "k8_diet":
@@ -1562,6 +1747,254 @@ def check_main_chaos(dev, k8_round_ms: float):
         raise AssertionError(f"main_pallas_chaos: digests differ: {digests}")
     if any(snaps[name] != snaps["k8"] for name in snaps):
         raise AssertionError("main_pallas_chaos: the probe snapshots differ")
+    return runs, timing
+
+
+# -- the chaos plane with the paged entry log -----------------------------------
+
+
+def check_round_kernel_chaos_paged(dev):
+    """The chaos builds with paging against round_kernel_ref(paged=,
+    chaos=) on a 128-group cluster paging in the kernel over segments of
+    two 96-lane blocks (two segments): slim and diet, K in {1,4}, seed 5
+    (metrics on) with a full pool and seed 17 (metrics off) with one of 4
+    pages a segment (lanes exhaust); round_kernel_chaos's faults
+    (chaos_plan) with a muted lane and proposals, 9 rounds as pallas_rounds
+    launches them at compaction lag 12 (the logs outrun the 8-entry tail),
+    then 3 quiet launches (no tick, no proposals) to skip the allocator;
+    every carry, partials, PagedLog and probe leaf by sha256, naming the
+    first that differs."""
+    cases = exhausted = skipped = 0
+    g, v, cta, tile = 128, VOTERS, 96, 192
+    n = g * v
+    for diet in (False, True):
+        for k in (1, 4):
+            for seed, pool in ((5, 0), (17, 8)):
+                metrics = seed == 5
+                c = FusedCluster(g, v, seed=seed, device=dev, diet=diet, chaos=True,
+                                 shape=paged_shape(n, pool), engine="pallas", tile_lanes=tile,
+                                 paged=True, paged_inkernel=True)
+                c.run(12, auto_propose=True, auto_compact_lag=12)
+                c.set_chaos(**chaos_plan(n, v, int(c.chaos.round)))
+                c.set_mute([v + 1])
+                ops = c.ops(hup={0: True}, prop_n={i: 2 for i in range(0, n, v)},
+                            prop_bytes=7, read_ctx={i: 100 + i for i in range(n)})
+                plan = [k] * (9 // k) + ([9 % k] if 9 % k else [])
+                launches = [(kc, i == 0, False) for i, kc in enumerate(plan)]
+                launches += [(1, False, True)] * 3
+                skip0 = int(c.paged.skipped.sum())
+                for i, (kc, first, quiet) in enumerate(launches):
+                    m = c.metrics
+                    samp = (m.samp_index, m.samp_round) if metrics else None
+                    args = (c.state, c.fab, ops, c.mute, samp, m.round_ctr if metrics else None)
+                    kw = dict(v=v, kc=kc, cta=cta, apply_ops=first, ops_round0_only=True,
+                              do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12,
+                              paged=c.paged, chaos=c.chaos, seg_lanes=tile)
+                    got = rc.round_call(*args, segments=c._segments, **kw)
+                    what = (f"{rc.kernel_name(diet, True, True)} K={k} seed={seed} "
+                            f"pool={pool} launch {i}")
+                    synchronize(what)
+                    want = plr.round_kernel_ref(*args, **kw)
+                    a = carry_leaves(*got[:4]) + paged_leaves(got[4]) + probe_leaves(got[5])
+                    b = carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5])
+                    bad = first_difference(a, b)
+                    if bad is not None or interop.digest([x for _, x in a]) != interop.digest(
+                        [x for _, x in b]
+                    ):
+                        raise AssertionError(f"{what}: first differing leaf {bad}")
+                    c.state, c.fab, c.paged = got[0], got[1], got[4]
+                    if metrics:
+                        c.metrics = plr.fold_partials(m, got[2], got[3], kc)
+                    c.chaos = plr.fold_chaos(c.chaos, got[5], got[3], kc, metrics)
+                    cases += 1
+                hit = int(((c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0).sum())
+                if (hit > 0) != (pool > 0):
+                    raise AssertionError(f"round_kernel_chaos_paged diet={diet} K={k} "
+                                         f"seed={seed} pool={pool}: {hit} exhausted lanes")
+                exhausted += hit
+                skipped += int(c.paged.skipped.sum()) - skip0
+    if skipped <= 0:
+        raise AssertionError("round_kernel_chaos_paged: no launch skipped its allocator")
+    emit("round_kernel_chaos_paged", launches_compared=cases,
+         cases="{slim, diet} x K{1,4} x {seed 5 (metrics on) full pool, seed 17 (metrics "
+               "off) 4 pages a segment}",
+         lanes=n, tile_lanes=tile, cta_lanes=cta, blocks_per_segment=tile // cta,
+         skipped_lane_launches=skipped, exhausted_lanes=exhausted, max_abs_err=0)
+
+
+def check_parity_chaos_paged():
+    """parity_chaos's run (64 groups, 33 rounds under three fault plans)
+    with paged=True, at compaction lag 12 so that the pool is used: on the
+    card the eager engine at the boundary and around every round, the
+    pallas engine at the boundary (K=3) and in the kernel (the default
+    tile, 192 lanes: one segment of two 96-lane blocks) at K=1 and K=3, the
+    pallas runs slim and diet; one host_state + chaos digest with the
+    unpaged eager CPU run, and the in-kernel K=3 runs' every leaf
+    (PagedLog included) equal to the CPU's."""
+    g = 64
+    n = g * VOTERS
+
+    def run(dev, diet=False, **kw):
+        paged = kw.pop("paged", True)
+        c = FusedCluster(g, VOTERS, seed=11, shape=paged_shape(n), device=dev, diet=diet,
+                         chaos=True, paged=paged, **kw)
+        for r0 in (0, 11, 22):
+            c.set_chaos(**chaos_plan(n, VOTERS, r0 + 3))
+            c.run(11, auto_propose=True, auto_compact_lag=12)
+            if dev == "cuda":
+                synchronize(f"parity_chaos_paged {kw}")
+        host = interop.digest(interop.to_numpy_leaves(c.host_state())
+                              + interop.to_numpy_leaves(c.chaos))
+        raw = None
+        if c.paged is not None:
+            raw = interop.digest(*(interop.to_numpy_leaves(x)
+                                   for x in (c.state, c.fab, c.metrics, c.chaos, c.paged)))
+        return c, host, raw
+
+    flat, want, _ = run("cpu", paged=False)
+    out = {"cpu_flat": want}
+    layout = {}
+    for diet in (False, True):
+        for name, kw in (("eager_boundary", {}), ("eager_inkernel", dict(paged_inkernel=True)),
+                         ("pallas_boundary_k3", dict(engine="pallas", rounds_per_call=3)),
+                         ("pallas_inkernel_k1", dict(engine="pallas", rounds_per_call=1,
+                                                     paged_inkernel=True)),
+                         ("pallas_inkernel_k3", dict(engine="pallas", rounds_per_call=3,
+                                                     paged_inkernel=True))):
+            if diet and name.startswith("eager"):
+                continue  # the eager engine's packed carry: parity_diet
+            key = name + ("_diet" if diet else "")
+            c, out[key], raw = run("cuda", diet, **kw)
+            if out[key] != want:
+                raise AssertionError(f"parity_chaos_paged {key}: card {out[key]} != cpu {want}")
+            if c.paged_stats()["paged_pool_in_use"] == 0:
+                raise AssertionError(f"parity_chaos_paged {key}: the pool was never used")
+            if name == "pallas_inkernel_k3":
+                layout = dict(tile_lanes=c._pallas_tile, segs=c._paged_segs,
+                              blocks_per_segment=segment_blocks(c))
+                cpu_raw = run("cpu", diet, **kw)[2]
+                if raw != cpu_raw:
+                    raise AssertionError(f"parity_chaos_paged {key}: card leaves {raw} != "
+                                         f"cpu {cpu_raw}")
+                out[key + "_leaves"] = raw
+    cols = flat.chaos_columns()
+    emit("parity_chaos_paged", groups=g, rounds=33, compaction_lag=12, digests=out, **layout,
+         n_reelected=int(cols["n_reelected"]), n_recommitted=int(cols["n_recommitted"]))
+
+
+def time_round_kernel_chaos_paged(c, phase: str) -> dict:
+    """The chaos build with paging at block 0 of the paged chaos cell (its
+    resident carry, PagedLog and chaos state after the scenario) against
+    round_kernel_ref(paged=, chaos=), K=1 and K=8, over the cluster's
+    allocation segments, timed on raw launches (a new epoch a launch)
+    beside the paged build without chaos on the same carry, the plain
+    version and the bytes bound: every input leaf read once and every
+    output leaf written once, the page table, the pool, the knob, probe
+    and scalar leaves and the segment words included."""
+    b = c.blocks[0]
+    diet = b._diet
+    m = b.metrics
+    n = b.shape.n_lanes
+    args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    d = rc.dims_of(b.state, b.fab, b.v, b.paged)
+    tile = b._pallas_tile
+    cta = rc.cta_lanes(tile, b.v, d, chaos=True, paged=True)
+    plan = rc.paged_plan(b.paged)
+    kern = rc.KERNELS[rc.kernel_name(diet, True, True)]
+    base = rc.KERNELS[rc.kernel_name(diet, True, False)]
+    ch_bytes = sum(getattr(b.chaos, k).numel() * 4 for k in tch.KNOBS + tch.PROBES * 2) + 12
+    seg_bytes = 0 if b._segments is None else 8 * (1 + n // cta)
+
+    def kw(kc, chaos=True):
+        return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True, do_tick=True,
+                    auto_propose=True, auto_compact_lag=8, paged=b.paged,
+                    chaos=b.chaos if chaos else None, seg_lanes=tile)
+
+    rows = {}
+    for kc in (1, 8):
+        ptrs, dims, flags, lag, outs = rc.pack(*args, segments=b._segments, **kw(kc))
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        go = raw_launch(kern, arr, nptr, cdims, flags, lag,
+                        target=rc.target(d, cta, diet, plan, True), segments=b._segments)
+        go()
+        synchronize(f"{kern.name} K={kc}")
+        want = plr.round_kernel_ref(*args, **kw(kc))
+        bad = first_difference(
+            carry_leaves(*outs[:4]) + paged_leaves(outs[4]) + probe_leaves(outs[5]),
+            carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5]))
+        if bad is not None:
+            raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
+                                 f"first differing leaf {bad}")
+        pg_bytes = sum(x.nbytes for _, x in paged_leaves(b.paged) + paged_leaves(outs[4]))
+        nbytes = round_bytes(args, outs[:4]) + pg_bytes + ch_bytes + seg_bytes
+        ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+        synchronize(f"{kern.name} K={kc} timing")
+        ptrs0, dims0, flags0, lag0, outs0 = rc.pack(*args, segments=b._segments,
+                                                    **kw(kc, chaos=False))
+        arr0, nptr0, cdims0 = rc.as_c_args(ptrs0, dims0)
+        go0 = raw_launch(base, arr0, nptr0, cdims0, flags0, lag0,
+                         target=rc.target(d, cta, diet, plan), segments=b._segments)
+        base_ms = cuda_ms(go0, iters=50 if kc == 1 else 10)
+        synchronize(f"{base.name} K={kc} timing")
+        rows[kc] = dict(max_abs_err=0, ms=ms, ms_per_round=ms / kc,
+                        without_chaos_ms=base_ms, without_chaos_ms_per_round=base_ms / kc,
+                        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                        bytes=nbytes, paged_bytes=pg_bytes, chaos_bytes=ch_bytes,
+                        segment_bytes=seg_bytes, rounds=kc)
+        if kc == 1:
+            rows[kc].update(
+                **rc.occupancy(d, cta, diet, plan, True),
+                wrapper_ms=cuda_ms(lambda: rc.round_call(*args, segments=b._segments, **kw(1)),
+                                   iters=20),
+                plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
+            )
+        del go, outs, want, go0, outs0
+    row = dict(rows[1], cta_lanes=cta, tile_lanes=tile, blocks_per_segment=tile // cta,
+               lanes=n, k8=rows[8])
+    emit(phase, **row)
+    return row
+
+
+def check_main_chaos_paged(dev):
+    """main_pallas_chaos_paged: the chaos cell's scenario at 1,048,576
+    groups as CHAOS_PAGED_BLOCK_GROUPS-group blocks, unpaged (the twin)
+    and paging in the kernel at the default tile (3,072 lanes, 32 blocks a
+    segment) with CHAOS_PAGED_POOL pages a block, slim and diet, all at
+    K=8: one digest, one probe snapshot, the same error lanes, no page
+    exhausted; the chaos builds with paging timed at block 0."""
+    runs, snaps, timing = {}, {}, {}
+    paging = dict(paged=True, paged_inkernel=True)
+    for name, pool, engine in (
+        ("flat_k8", None, dict(engine="pallas", rounds_per_call=8)),
+        ("k8", CHAOS_PAGED_POOL, dict(engine="pallas", rounds_per_call=8, **paging)),
+        ("k8_diet", CHAOS_PAGED_POOL, dict(engine="pallas", rounds_per_call=8, diet=True,
+                                           **paging)),
+    ):
+        c, runs[name], snaps[name] = run_main_chaos(
+            dev, f"main_pallas_chaos_paged_{name}", CHAOS_PAGED_BLOCK_GROUPS, pool, **engine)
+        synchronize(f"main_pallas_chaos_paged {name}")
+        if pool is not None and runs[name].get("paged_exhausted"):
+            raise AssertionError(f"main_pallas_chaos_paged {name}: "
+                                 f"{runs[name]['paged_exhausted']} lanes exhausted the pool")
+        if name == "k8":
+            timing["round_kernel_chaos_paged"] = time_round_kernel_chaos_paged(
+                c, "round_kernel_chaos_paged_timing")
+        if name == "k8_diet":
+            timing["round_kernel_chaos_paged_diet"] = time_round_kernel_chaos_paged(
+                c, "round_kernel_chaos_paged_diet_timing")
+        del c
+        torch.cuda.empty_cache()
+    digests = {name: r["digest"] for name, r in runs.items()}
+    emit("main_pallas_chaos_paged", digests=digests,
+         round_ms={name: r["round_ms"] for name, r in runs.items()},
+         pool_in_use={name: r.get("paged_pool_in_use") for name, r in runs.items()},
+         peak_mem_gb={name: r["peak_mem_gb"] for name, r in runs.items()})
+    if any(r["error_lanes"] != runs["flat_k8"]["error_lanes"] for r in runs.values()):
+        raise AssertionError("main_pallas_chaos_paged: the error lanes differ between the runs")
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"main_pallas_chaos_paged: digests differ: {digests}")
+    if any(snaps[name] != snaps["flat_k8"] for name in snaps):
+        raise AssertionError("main_pallas_chaos_paged: the probe snapshots differ")
     return runs, timing
 
 
@@ -1655,6 +2088,7 @@ def main() -> int:
     # the paged entry log: its kernels, the card against the CPU, and the
     # paged main path against itself at the dispatch boundary and unpaged
     check_round_kernel_paged(dev)
+    check_round_kernel_segments(dev)
     check_parity_paged()
     paged_runs, paged_timing = check_main_paged(dev)
     timing.update(paged_timing)
@@ -1673,6 +2107,16 @@ def main() -> int:
     launches["round_kernel_chaos_diet"] = (
         chaos_runs["k8_diet"]["launches"]["round_kernel_chaos_diet"])
 
+    # the chaos plane with in-kernel paging: its kernels over multi-block
+    # segments, the card against the CPU, and the chaos cell paged
+    check_round_kernel_chaos_paged(dev)
+    check_parity_chaos_paged()
+    cp_runs, cp_timing = check_main_chaos_paged(dev)
+    timing.update(cp_timing)
+    launches["round_kernel_chaos_paged"] = cp_runs["k8"]["launches"]["round_kernel_chaos_paged"]
+    launches["round_kernel_chaos_paged_diet"] = (
+        cp_runs["k8_diet"]["launches"]["round_kernel_chaos_paged_diet"])
+
     replaces = {
         "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
         "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
@@ -1683,6 +2127,8 @@ def main() -> int:
         "round_kernel_paged_diet": "raft_tpu/ops/pallas_round.py:589",
         "round_kernel_chaos": "raft_tpu/ops/pallas_round.py:616",
         "round_kernel_chaos_diet": "raft_tpu/ops/pallas_round.py:616",
+        "round_kernel_chaos_paged": "raft_tpu/ops/pallas_round.py:589",
+        "round_kernel_chaos_paged_diet": "raft_tpu/ops/pallas_round.py:589",
     }
     kernels = []
     for name in replaces:
@@ -1719,4 +2165,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except TimeoutError as e:
+        # a launch that never finished: leave without waiting on the card
+        print(f"chip_smoke: {e}", file=sys.stderr, flush=True)
+        os._exit(1)

@@ -10,7 +10,10 @@ through it segment by segment: write the columns, run, check
 each heal round, and fold each healed group's ticks to re-election and to
 first commit into `RecoveryProbe`, whose snapshot has the JAX package's
 schema. `trajectory_digest` is the JAX package's bit-identity oracle over
-the state and chaos leaves.
+the state and chaos leaves. A cluster with the paged entry log runs it as
+it is: the runner reads only columns the carry keeps resident (state,
+term, error bits) and the chaos columns, and trajectory_digest hashes the
+resident carry, as the JAX package's does; host_state is the paged view.
 
 The columns, heal sets and probe folds are numpy over whole group arrays
 (the JAX package loops in Python over every group of every event, seconds

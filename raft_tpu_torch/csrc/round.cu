@@ -66,19 +66,32 @@
 //   the whole block, each leaf's chunk transposed through shared memory,
 //   made a one-round launch 3.7x slower: PERF.md, PR 3.)
 // - The paged build (-DRAFT_PAGED=1 with RAFT_WRES, RAFT_PE, RAFT_M: the
-//   paged entry log of ops/paged.py, paged in the kernel). A CUDA block
-//   is one allocation segment: its lanes' page tables address its own
-//   sub-pool of `pool_rows` rows (row 0 its trash row). The log leaves'
-//   device rows are the resident [W_res] tails; each thread rebuilds its
-//   lane's W ring columns from its tail, its page-table row and the
-//   sub-pool (page_in), the rounds run unchanged, and after the last one
-//   the block decides with one barrier whether any lane's last or
-//   snap_index moved. If none did (and E <= W_res) the tables and the
-//   sub-pool are copied through; else the block reallocates from scratch
-//   (page_out): each lane's page demand, an exclusive scan over the block
-//   (warp shuffles, one shared row of warp totals), its pages written,
-//   and every other row of the sub-pool zeroed, with ERR_PAGE_EXHAUSTED on
-//   a lane that did not fit. Built with and without RAFT_DIET.
+//   paged entry log of ops/paged.py, paged in the kernel). An allocation
+//   segment is the engine's lane tile, as in the JAX package: `bps`
+//   consecutive CUDA blocks whose lanes' page tables address the
+//   segment's own sub-pool of `pool_rows` rows (row 0 its trash row). The
+//   log leaves' device rows are the resident [W_res] tails; each thread
+//   rebuilds its lane's W ring columns from its tail, its page-table row
+//   and the sub-pool (page_in), the rounds run unchanged, and after the
+//   last one each block takes, with one barrier, whether any of its lanes'
+//   last or snap_index moved, and the exclusive scan of its lanes' page
+//   demands (warp shuffles, one shared row of warp totals). A segment of
+//   several blocks then meets at a barrier in device memory: each block
+//   publishes one 64-bit word (the launch's epoch, its `moved`, its total
+//   demand) and waits with acquire loads until every block of its segment
+//   has published; the OR of the words decides page_out_cond for the
+//   segment, and their sum below the block is its first page. So that a
+//   waiting block never holds a slot a block of its own segment needs, a
+//   block takes its place (its logical id, hence its lanes) from a ticket
+//   counter when it starts, not from blockIdx: every lower id has
+//   started, and a segment whose blocks fit the card at once completes
+//   (round_cuda.py checks that they do). If no lane of the segment moved
+//   (and E <= W_res) the tables and the sub-pool are copied through; else
+//   the segment reallocates from scratch (page_out): its lanes' pages
+//   written from 1 + the scan, and every other row of the sub-pool zeroed,
+//   each block taking an even share of the rows, with ERR_PAGE_EXHAUSTED
+//   on a lane that did not fit. Built with and without RAFT_DIET, and
+//   with RAFT_CHAOS.
 // - The chaos build (-DRAFT_CHAOS=1: the chaos plane of
 //   raft_tpu_torch/chaos/device.py, replacing the chaos branch of the
 //   Pallas kernel, :616-634, :670-700, :728-730). Per lane and in-kernel
@@ -96,8 +109,11 @@
 //   before the partials row takes the block's recounts. The draws are
 //   chaos/device.py's counter-based hash on the global lane (i), so
 //   blocks and K do not change them. Knobs are read from device memory
-//   each round; the probe columns ride in registers. Not built with
-//   RAFT_PAGED.
+//   each round; the probe columns ride in registers. With RAFT_PAGED
+//   (round_kernel_chaos_paged, replacing :589-730) the lane pages in,
+//   runs the chaos rounds and pages out: a crash wipe keeps the log and
+//   its cursors (state.py wipe_volatile), so the probe's barriers inside
+//   the rounds and the segment barrier after them never meet.
 // - The commit index and vote tallies are per lane over its own [V]
 //   progress rows: raft::joint_committed / reduce_half<V> of quorum.cuh,
 //   shared with quorum.cu.
@@ -344,9 +360,6 @@
 #ifndef RAFT_CHAOS
 #define RAFT_CHAOS 0
 #endif
-#if RAFT_CHAOS && RAFT_PAGED
-#error "the chaos build does not take the paged entry log (ROADMAP Queue 2)"
-#endif
 #if RAFT_PAGED && (!defined(RAFT_WRES) || !defined(RAFT_PE) || !defined(RAFT_M))
 #error "the paged build takes its geometry: -DRAFT_WRES= -DRAFT_PE= -DRAFT_M="
 #endif
@@ -433,7 +446,9 @@ enum : int {
   P_PARTIALS,                      // [kc, n / cta, kPartialWidth] i32
   P_PAGED_IN,                      // PagedLog leaves (PG_* order; paged
   P_PAGED_OUT = P_PAGED_IN + 8,    // build, else null), in and out
-  P_CH_KNOB = P_PAGED_OUT + 8,     // the chaos build only: its knob columns,
+  P_SEG = P_PAGED_OUT + 8,         // [1 + n / cta] u64: the segment barrier's
+                                   // ticket and words (paged build, bps > 1)
+  P_CH_KNOB,                       // the chaos build only: its knob columns,
   P_CH_PROBE_IN = P_CH_KNOB + kChaosKnobs,  // the probe columns in,
   P_CH_ROUND = P_CH_PROBE_IN + kChaosProbes, // [] i32 the launch's first round,
   P_CH_HEAL,                                 // [] i32 heal_round,
@@ -510,7 +525,9 @@ struct Args {
   int kc;     // rounds in this launch
   int flags;
   int lag;    // auto_compact_lag when F_LAG
-  long long pool_rows;  // pool rows per CUDA block (paged build), else 0
+  long long pool_rows;  // pool rows per allocation segment (paged build), else 0
+  int bps;              // CUDA blocks per allocation segment (paged build), else 1
+  uint32_t epoch;       // this launch's tag of the segment words (bps > 1)
 };
 
 // ---------------------------------------------------------------------------
@@ -633,6 +650,9 @@ constexpr int kFab8 = set_off(kFabLeaves, kFabN, SET_FAB, false);
 
 RAFT_HD constexpr long long pad16(long long x) { return (x + 15) & ~15LL; }
 
+// the paged build's shared ints after the warp totals of its block scan
+enum : int { SC_LID = kMaxCta / 32, SC_MOVED, SC_PREFIX, SC_TOTAL, kScanSlots };
+
 // Byte offsets into the block's buffer, compile-time constants. Element e
 // of lane t of a leaf in shared memory sits at column[e * s + t]: s = sr =
 // S for the rings, s = sf = S + 1 for the two fabric buffers.
@@ -646,10 +666,11 @@ struct Block {
   static constexpr long long fab_bytes = fab32_bytes + pad16((long long)kFab8 * sf);
   static constexpr long long acc0 = fab0 + 2 * fab_bytes;
   static constexpr long long acc_bytes = pad16(4LL * kAccN);
-  // the paged build's warp totals of its block scan
+  // the paged build's warp totals of its block scan, then the block's
+  // logical id and its segment's moved, prefix and total (kScanSlots)
   static constexpr long long scan0 = acc0 + 2 * acc_bytes;
   // the chaos build's probe flags, a byte a lane
-  static constexpr long long flag0 = scan0 + (RAFT_PAGED ? pad16(4LL * (kMaxCta / 32)) : 0);
+  static constexpr long long flag0 = scan0 + (RAFT_PAGED ? pad16(4LL * kScanSlots) : 0);
   static constexpr long long bytes = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
 
   // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
@@ -2462,20 +2483,18 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
 
 namespace raft {
 
-// what a thread keeps across the rounds
+// What a thread keeps across the rounds. The planes keep nothing here: at
+// the bench Shape a 96-lane block has 168 registers a thread (three blocks
+// an SM, registers allocated four warps a block), which the carry and the
+// round fill. The paged build reads what page-in saw again at page-out
+// (the lane's input cursors and page-table row), and the chaos build keeps
+// the probe columns in their output rows, written at load and updated in
+// place (chaos_probe).
 struct Thread {
   Lane L;
   Cfg c;
   Sampler samp;
   uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut)
-#if RAFT_PAGED
-  int pg_faults;         // pages of this lane's table mapped at page-in
-  int pg_last, pg_snap;  // last and snap_index at page-in
-#endif
-#if RAFT_CHAOS
-  int ch_base, ch_reelect, ch_recommit;  // the probe columns (chaos/device.py PROBES)
-  bool ch_wiped;  // wiped in a round of this launch: its through rows are zeroed
-#endif
 };
 
 #if RAFT_CHAOS
@@ -2499,6 +2518,9 @@ RAFT_HD bool decide(uint32_t seed, int rnd, uint32_t idx, uint32_t salt, int num
 }
 
 RAFT_HD const int *knob(const Args &a, int k) { return (const int *)a.p[P_CH_KNOB + k]; }
+// probe column k (PROBES order) of the launch's output, the lane's working
+// copy from its load on
+RAFT_HD int *chaos_probe(const Args &a, int k) { return (int *)a.p[P_CH_PROBE_OUT + k]; }
 // the chaos scalars: the launch's first round, heal_round, the seed
 struct ChaosScalars {
   int round, heal;
@@ -2553,10 +2575,7 @@ RAFT_HD void chaos_begin(const Args &a, long long i, int k, Thread &th, uint32_t
   const int rnd = sc.round + k;
   const uint32_t seed = sc.seed;
   const int *crash_at = knob(a, CH_crash_at), *restart_at = knob(a, CH_restart_at);
-  if (rnd == crash_at[i] || rnd == restart_at[i]) {
-    wipe_lane(th.L, th.c);
-    th.ch_wiped = true;
-  }
+  if (rnd == crash_at[i] || rnd == restart_at[i]) wipe_lane(th.L, th.c);
   crashed = rnd >= crash_at[i] && rnd < restart_at[i];
   const long long base = i - i % V;
   const int recv = knob(a, CH_part_recv)[i];
@@ -2576,7 +2595,7 @@ RAFT_HD void chaos_begin(const Args &a, long long i, int k, Thread &th, uint32_t
       if (decide(seed, rnd, (uint32_t)(i * V + j), SALT_DROP + ch, num)) cut[ch] |= 1u << j;
   }
   tick = !crashed && !decide(seed, rnd, (uint32_t)i, SALT_TICK_SKEW, knob(a, CH_tick_skew_num)[i]);
-  if (rnd == sc.heal) th.ch_base = th.L.committed;
+  if (rnd == sc.heal) chaos_probe(a, CH_base_committed)[i] = th.L.committed;
 }
 
 // end_round's duplicate redelivery: where the draw fires, cell j of the
@@ -2637,7 +2656,7 @@ RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long
 // end_round's recovery probe for lane t after the round's barrier: its
 // group's flags (bit 0 a leader, bit 1 committed past the baseline, one
 // byte a lane) record the first armed round of each
-RAFT_HD void lane_probe(const Args &a, const Block &B, int k, int t, Thread &th) {
+RAFT_HD void lane_probe(const Args &a, const Block &B, int k, long long i, int t) {
   const ChaosScalars sc = chaos_scalars(a);
   const int rnd = sc.round + k;
   const uint8_t *f = B.flag() + (t - t % V);
@@ -2645,9 +2664,18 @@ RAFT_HD void lane_probe(const Args &a, const Block &B, int k, int t, Thread &th)
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) any |= f[j];
   if (rnd >= sc.heal) {
-    if (th.ch_reelect == NEVER && (any & 1u)) th.ch_reelect = rnd;
-    if (th.ch_recommit == NEVER && (any & 2u)) th.ch_recommit = rnd;
+    int *re = chaos_probe(a, CH_reelect_round) + i, *co = chaos_probe(a, CH_recommit_round) + i;
+    if (*re == NEVER && (any & 1u)) *re = rnd;
+    if (*co == NEVER && (any & 2u)) *co = rnd;
   }
+}
+
+// whether lane i was wiped in a round of this launch (its crash or restart
+// round inside it): its through rows are zeroed at the store
+RAFT_HD bool chaos_wiped(const Args &a, long long i) {
+  const int r0 = chaos_scalars(a).round;
+  const int c = knob(a, CH_crash_at)[i], r = knob(a, CH_restart_at)[i];
+  return (c >= r0 && c - r0 < a.kc) || (r >= r0 && r - r0 < a.kc);
 }
 
 // a through row of lane i zeroed in the output (a wiped lane's pri_ctx,
@@ -2683,10 +2711,9 @@ RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread
     if (mute[i]) th.cut = (1u << V) - 1;
   }
 #if RAFT_CHAOS
-  th.ch_base = ((const int *)a.p[P_CH_PROBE_IN + CH_base_committed])[i];
-  th.ch_reelect = ((const int *)a.p[P_CH_PROBE_IN + CH_reelect_round])[i];
-  th.ch_recommit = ((const int *)a.p[P_CH_PROBE_IN + CH_recommit_round])[i];
-  th.ch_wiped = false;
+  RAFT_UNROLL
+  for (int k = 0; k < kChaosProbes; ++k)
+    chaos_probe(a, k)[i] = ((const int *)a.p[P_CH_PROBE_IN + k])[i];
 #endif
 }
 
@@ -2730,7 +2757,7 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   chaos_dup(a, outbox(B, src, t), out, i, k);
   // the probe's flags, before the storage boundary clamps committed
   B.flag()[t] = uint8_t((th.L.state == LEADER ? 1u : 0u) |
-                        (th.L.committed > th.ch_base ? 2u : 0u));
+                        (th.L.committed > chaos_probe(a, CH_base_committed)[i] ? 2u : 0u));
 #else
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev);
@@ -2750,10 +2777,7 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
     ((int *)a.p[P_SAMP_ROUND_OUT])[i] = th.samp.round;
   }
 #if RAFT_CHAOS
-  ((int *)a.p[P_CH_PROBE_OUT + CH_base_committed])[i] = th.ch_base;
-  ((int *)a.p[P_CH_PROBE_OUT + CH_reelect_round])[i] = th.ch_reelect;
-  ((int *)a.p[P_CH_PROBE_OUT + CH_recommit_round])[i] = th.ch_recommit;
-  if (th.ch_wiped) {
+  if (chaos_wiped(a, i)) {
     zero_row<SL_pri_ctx, RAFT_ST_I32>(a, i);
     zero_row<SL_pri_from, RAFT_ST_I32>(a, i);
   }
@@ -2763,8 +2787,10 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
 RAFT_HD int *acc_row(const Block &B, int k) { return B.acc(k & 1); }
 
 // The launch's arguments from a C entry's (table order; dims: n, v, w, e,
-// f, r, kc, cta, pool rows per block (paged build, else 0)): false unless v..r are this library's Shape and the
-// block is a multiple of v that divides n and takes at most S lanes.
+// f, r, kc, cta, and for the paged build pool rows per allocation segment,
+// blocks per segment and the launch's epoch, else 0, 1, 0): false unless
+// v..r are this library's Shape, the block is a multiple of v that divides
+// n and takes at most S lanes, and the segments cover the blocks.
 RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int flags, int lag,
                      Args &a, int &cta) {
   if (nptrs != kNumPtrs || dims[1] != V || dims[2] != W || dims[3] != E ||
@@ -2772,9 +2798,11 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
       dims[0] % dims[7] || dims[6] < 1)
     return false;
 #if RAFT_PAGED
-  if (dims[8] < KMAX + 1 || dims[8] > 65536) return false;
+  if (dims[8] < KMAX + 1 || dims[8] > 65536 || dims[9] < 1 || (dims[0] / dims[7]) % dims[9] ||
+      dims[10] < 0 || dims[10] > 0xFFFFFFFFLL || (dims[9] > 1 && (!ptrs[P_SEG] || !dims[10])))
+    return false;
 #else
-  if (dims[8] != 0) return false;
+  if (dims[8] != 0 || dims[9] != 1 || dims[10] != 0) return false;
 #endif
   for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
   a.n = dims[0];
@@ -2782,6 +2810,8 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
   a.flags = flags;
   a.lag = lag;
   a.pool_rows = dims[8];
+  a.bps = (int)dims[9];
+  a.epoch = (uint32_t)dims[10];
   cta = (int)dims[7];
   return true;
 }
@@ -2820,7 +2850,7 @@ RAFT_HD constexpr int pool_leaf(int k) {
   return k == SL_log_term ? PG_pool_term : k == SL_log_type ? PG_pool_type : PG_pool_bytes;
 }
 
-// slot s of a log leaf's column from the pool: entry `ent` of the block's
+// slot s of a log leaf's column from the pool: entry `ent` of the segment's
 // sub-pool where `mapped`, else zero (page_in's fallback, paged.py:245-249)
 template <int K, typename ST>
 RAFT_HD void slot_from_pool(const Args &a, const Col<ST> &x, int s, bool mapped, long long ent) {
@@ -2842,29 +2872,34 @@ RAFT_HD void tail_to_col(const Args &a, long long i, const Col<ST> &x, int last,
   }
 }
 
+// lane i's last / snap_index as page-in saw them: its input leaves,
+// widened as load_lane widens them
+template <int K>
+RAFT_HD int cursor_in(const Args &a, long long i) {
+  return (int)((const typename StateLeaf<K, int32_t>::T *)a.p[P_STATE_IN + K])[i];
+}
+
+// whether lane i's last or snap_index moved since page-in
+RAFT_HD bool lane_moved(const Args &a, long long i, const Lane &L) {
+  return L.last != cursor_in<SL_last>(a, i) || L.snap_index != cursor_in<SL_snap_index>(a, i);
+}
+
 // page_in (paged.py:222-258): lane i's W ring slots of the three log
-// leaves from its tail, its page-table row and its block's sub-pool
-// (rows [blk * pool_rows, (blk + 1) * pool_rows)); slots outside
-// (snap, last] are zero. Keeps the lane's mapped pages (the faults bump)
-// and its last / snap_index for the move test.
-RAFT_HD void lane_page_in(const Args &a, long long i, long long blk, Thread &th) {
+// leaves from its tail, its page-table row and its segment's sub-pool
+// (rows [seg * pool_rows, (seg + 1) * pool_rows)); slots outside
+// (snap, last] are zero.
+RAFT_HD void lane_page_in(const Args &a, long long i, long long seg, Thread &th) {
   Lane &L = th.L;
   const int last = L.last, snap = L.snap_index;
   const int lo_res = imax(snap, last - WRES);
   const uint16_t *pt = (const uint16_t *)a.p[P_PAGED_IN + PG_pt] + i * M;
-  const long long seg = blk * a.pool_rows;
-  int mapped = 0;
-  RAFT_UNROLL
-  for (int m = 0; m < M; ++m) mapped += pt[m] > 0;
-  th.pg_faults = mapped;
-  th.pg_last = last;
-  th.pg_snap = snap;
+  const long long base = seg * a.pool_rows;
   RAFT_UNROLL
   for (int s = 0; s < W; ++s) {
     const int idx = last - ((last - s) & (W - 1));
     const bool paged = idx > snap && idx <= lo_res;  // valid, not resident
     const int page = paged ? (int)pt[(idx >> LPE) & (M - 1)] : 0;
-    const long long ent = (seg + page) * PE + (idx & (PE - 1));
+    const long long ent = (base + page) * PE + (idx & (PE - 1));
     slot_from_pool<SL_log_term>(a, L.log_term, s, page > 0, ent);
     slot_from_pool<SL_log_type>(a, L.log_type, s, page > 0, ent);
     slot_from_pool<SL_log_bytes>(a, L.log_bytes, s, page > 0, ent);
@@ -2909,28 +2944,33 @@ RAFT_HD int lane_need(const Lane &L, int &k_lo) {
   return lo_res > snap ? (lo_res >> LPE) - k_lo + 1 : 0;
 }
 
-// page_out / page_out_cond (paged.py:287-384) of lane i, after the rounds:
-// its tail, its page-table row, its live pages and its counters. `moved`:
-// the block reallocates; page0: the lane's first page id (1 + the
-// exclusive scan of the block's needs). The block's rows no live page
+// page_out / page_out_cond (paged.py:287-384) of lane i, after the rounds
+// and the store of its carry: its tail, its page-table row, its live pages
+// and its counters, and ERR_PAGE_EXHAUSTED added to its stored error bits
+// where its pages did not fit (error_bits is never packed). `moved`:
+// the segment `seg` reallocates; page0: the lane's first page id (1 + the
+// exclusive scan of the segment's needs). The sub-pool's rows no live page
 // writes are block_pool's.
-RAFT_HD void lane_page_out(const Args &a, long long i, long long blk, Thread &th, bool moved,
+RAFT_HD void lane_page_out(const Args &a, long long i, long long seg, Thread &th, bool moved,
                            int page0) {
   Lane &L = th.L;
   const int last = L.last, snap = L.snap_index;
   const int lo_res = imax(snap, last - WRES);
   const int *const *in = (const int *const *)(a.p + P_PAGED_IN);
   int *const *out = (int *const *)(a.p + P_PAGED_OUT);
-  out[PG_faults][i] = in[PG_faults][i] + th.pg_faults;
   col_to_tail<SL_log_term>(a, i, L.log_term, last, lo_res);
   col_to_tail<SL_log_type>(a, i, L.log_type, last, lo_res);
   col_to_tail<SL_log_bytes>(a, i, L.log_bytes, last, lo_res);
   const uint16_t *pt_in = (const uint16_t *)a.p[P_PAGED_IN + PG_pt] + i * M;
   uint16_t *pt_out = (uint16_t *)a.p[P_PAGED_OUT + PG_pt] + i * M;
+  uint16_t e_in[M];
+  RowIO<uint16_t, M>::load(pt_in, e_in);
+  int mapped = 0;  // the pages page-in gathered: the faults bump
+  RAFT_UNROLL
+  for (int m = 0; m < M; ++m) mapped += e_in[m] > 0;
+  out[PG_faults][i] = in[PG_faults][i] + mapped;
   if (!moved) {  // the skip branch: table and pool as they were
-    uint16_t e[M];
-    RowIO<uint16_t, M>::load(pt_in, e);
-    RowIO<uint16_t, M>::store(pt_out, e);
+    RowIO<uint16_t, M>::store(pt_out, e_in);
     out[PG_exhausted][i] = in[PG_exhausted][i];
     out[PG_dirty][i] = in[PG_dirty][i];
     out[PG_skipped][i] = in[PG_skipped][i] + 1;
@@ -2940,7 +2980,7 @@ RAFT_HD void lane_page_out(const Args &a, long long i, long long blk, Thread &th
   const int need = lane_need(L, k_lo);
   const int n_alloc = imin(imax((int)a.pool_rows - page0, 0), need);
   const bool exh = n_alloc < need;
-  if (exh) L.error_bits |= ERR_PAGE_EXHAUSTED;
+  if (exh) ((int *)a.p[P_STATE_OUT + SL_error_bits])[i] = L.error_bits | ERR_PAGE_EXHAUSTED;
   // slot mm holds key k_lo + ((mm - k_lo) & (M - 1)), live below n_alloc
   uint16_t e[M];
   RAFT_UNROLL
@@ -2949,11 +2989,11 @@ RAFT_HD void lane_page_out(const Args &a, long long i, long long blk, Thread &th
     e[mm] = (uint16_t)(j < n_alloc ? page0 + j : 0);
   }
   RowIO<uint16_t, M>::store(pt_out, e);
-  const long long seg = blk * a.pool_rows;
+  const long long base = seg * a.pool_rows;
   RAFT_UNROLL
   for (int j = 0; j < KMAX; ++j) {
     if (j >= n_alloc) break;
-    const long long row = seg + page0 + j;
+    const long long row = base + page0 + j;
     col_to_page<SL_log_term>(a, L.log_term, row, k_lo + j, snap, lo_res);
     col_to_page<SL_log_type>(a, L.log_type, row, k_lo + j, snap, lo_res);
     col_to_page<SL_log_bytes>(a, L.log_bytes, row, k_lo + j, snap, lo_res);
@@ -2963,12 +3003,15 @@ RAFT_HD void lane_page_out(const Args &a, long long i, long long blk, Thread &th
   out[PG_skipped][i] = in[PG_skipped][i];
 }
 
+// rows [lo, hi) of the sub-pool at row `base` (threads tid of nth):
+// copied through, or zeroed where no live page goes (the trash row 0, and
+// the rows from `end` on)
 template <typename T>
-RAFT_HD void pool_rows_part(const Args &a, int leaf, long long seg, long long end, bool copy,
-                            int tid, int nth) {
-  const T *src = (const T *)a.p[P_PAGED_IN + leaf] + seg * PE;
-  T *dst = (T *)a.p[P_PAGED_OUT + leaf] + seg * PE;
-  for (long long x = tid; x < a.pool_rows * PE; x += nth) {
+RAFT_HD void pool_rows_part(const Args &a, int leaf, long long base, long long lo, long long hi,
+                            long long end, bool copy, int tid, int nth) {
+  const T *src = (const T *)a.p[P_PAGED_IN + leaf] + base * PE;
+  T *dst = (T *)a.p[P_PAGED_OUT + leaf] + base * PE;
+  for (long long x = lo * PE + tid; x < hi * PE; x += nth) {
     const long long row = x / PE;
     if (copy)
       dst[x] = src[x];
@@ -2977,20 +3020,32 @@ RAFT_HD void pool_rows_part(const Args &a, int leaf, long long seg, long long en
   }
 }
 
-// the block's sub-pool rows no lane wrote (threads tid of nth): copied
-// through when the block skipped its allocator, else zeroed (the trash row
-// 0, and the rows from 1 + the block's total need on, which the scan left
-// unallocated)
-RAFT_HD void block_pool(const Args &a, long long blk, bool moved, int total_need, int tid,
+// block j's share of the sub-pool rows of segment `seg` that no lane
+// writes (threads tid of nth; the bps blocks of a segment take even
+// shares): copied through when the segment skipped its allocator, else
+// zeroed (the trash row 0, and the rows from 1 + the segment's total need
+// on, which the scan left unallocated). A one-block segment takes the
+// whole sub-pool with constant bounds: through the share arithmetic its
+// launch took about 20 us more on the H100 (PERF.md, the paged build).
+RAFT_HD void block_pool(const Args &a, long long seg, int j, bool moved, int total_need, int tid,
                         int nth) {
   using TT = typename StateLeaf<SL_log_term, int32_t>::T;
   using TY = typename StateLeaf<SL_log_type, int8_t>::T;
   using TB = typename StateLeaf<SL_log_bytes, int32_t>::T;
-  const long long seg = blk * a.pool_rows;
+  const long long base = seg * a.pool_rows;
   const long long end = 1 + (long long)total_need;
-  pool_rows_part<TT>(a, PG_pool_term, seg, end, !moved, tid, nth);
-  pool_rows_part<TY>(a, PG_pool_type, seg, end, !moved, tid, nth);
-  pool_rows_part<TB>(a, PG_pool_bytes, seg, end, !moved, tid, nth);
+  if (a.bps == 1) {
+    pool_rows_part<TT>(a, PG_pool_term, base, 0, a.pool_rows, end, !moved, tid, nth);
+    pool_rows_part<TY>(a, PG_pool_type, base, 0, a.pool_rows, end, !moved, tid, nth);
+    pool_rows_part<TB>(a, PG_pool_bytes, base, 0, a.pool_rows, end, !moved, tid, nth);
+    return;
+  }
+  const long long share = (a.pool_rows + a.bps - 1) / a.bps;
+  const long long lo = j * share < a.pool_rows ? j * share : a.pool_rows;
+  const long long hi = lo + share < a.pool_rows ? lo + share : a.pool_rows;
+  pool_rows_part<TT>(a, PG_pool_term, base, lo, hi, end, !moved, tid, nth);
+  pool_rows_part<TY>(a, PG_pool_type, base, lo, hi, end, !moved, tid, nth);
+  pool_rows_part<TB>(a, PG_pool_bytes, base, lo, hi, end, !moved, tid, nth);
 }
 #endif
 
@@ -3025,11 +3080,12 @@ __device__ __forceinline__ void add_events(const Events &ev, int *acc, int t, in
 #if RAFT_CHAOS
 // the chaos build's recounts: lanes with a recorded reelect / recommit
 // round, summed over the warp and added to the block's slots
-__device__ __forceinline__ void add_recounts(const Thread &th, int *acc, int t, int cta) {
+__device__ __forceinline__ void add_recounts(const Args &a, long long i, int *acc, int t,
+                                             int cta) {
   const int live = cta - (t & ~31);
   const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
-  const int s0 = __reduce_add_sync(mask, th.ch_reelect != NEVER ? 1 : 0);
-  const int s1 = __reduce_add_sync(mask, th.ch_recommit != NEVER ? 1 : 0);
+  const int s0 = __reduce_add_sync(mask, chaos_probe(a, CH_reelect_round)[i] != NEVER ? 1 : 0);
+  const int s1 = __reduce_add_sync(mask, chaos_probe(a, CH_recommit_round)[i] != NEVER ? 1 : 0);
   if ((t & 31) == 0) {
     if (s0) atomicAdd(&acc[kPartUsed], s0);
     if (s1) atomicAdd(&acc[kPartUsed + 1], s1);
@@ -3040,8 +3096,7 @@ __device__ __forceinline__ void add_recounts(const Thread &th, int *acc, int t, 
 #if RAFT_PAGED
 // The exclusive prefix sum of x over the block's threads, and its total:
 // an inclusive scan within each warp by shuffles, then the warp totals
-// through one shared row (a block is one allocation segment, at most
-// kMaxCta lanes).
+// through one shared row (at most kMaxCta lanes a block).
 __device__ __forceinline__ int block_exclusive_scan(int x, int *warp_tot, int t, int cta,
                                                     int &total) {
   const int live = cta - (t & ~31);
@@ -3065,21 +3120,129 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int *warp_tot, int t,
   return base + v - x;
 }
 
-// page_out_cond for the block (paged.py:357-384): one barrier decides
-// whether any lane's last or snap_index moved since page-in; if so the
-// allocator runs (the block scan of the lanes' needs gives each its first
-// page), else the tables and the sub-pool are copied through
+// The segment barrier's scratch (P_SEG, u64): word 0 the ticket counter
+// (its low 32 bits), then one word a block by logical id: the launch's
+// epoch in the high 32 bits, the block's `moved` in bit 31 and its lanes'
+// total page demand below it. The epoch tells this launch's words from
+// the last one's, so nothing is reset between launches.
+__device__ __forceinline__ unsigned long long *seg_words(const Args &a) {
+  return (unsigned long long *)a.p[P_SEG];
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long *p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long *p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The block's logical id, which places its lanes: blockIdx.x when a
+// segment is one block, else its ticket. Tickets go 0..gridDim.x - 1 in
+// the order the blocks start (atomicInc wraps the counter back to 0 at the
+// last one, ready for the next launch), so when a block waits at its
+// segment's barrier every block with a lower id has started.
+__device__ __forceinline__ long long logical_block(const Args &a, const Block &B, int t) {
+  if (a.bps == 1) return blockIdx.x;
+  int *slot = B.scan() + SC_LID;
+  if (t == 0) *slot = (int)atomicInc((unsigned *)seg_words(a), gridDim.x - 1);
+  __syncthreads();
+  return *slot;
+}
+
+// A wait at the segment barrier longer than this traps: a launch whose
+// segment cannot complete fails instead of hanging the card.
+constexpr unsigned long long kSegWaitNs = 10ull * 1000 * 1000 * 1000;
+
+// The segment of block `blk` (bps blocks, one allocation segment) from its
+// blocks' words: whether any lane of the segment moved (page_out_cond
+// decides per segment, as the JAX package does per tile), the demand of
+// the segment's blocks below this one and the segment's total. The block
+// publishes its word; warp 0 reads the segment's words with acquire loads
+// until each carries this launch's epoch, and shares what they say
+// through the block's scan row.
+//
+// The wrapper passes the pool in and out as separate buffers
+// (P_PAGED_IN, P_PAGED_OUT). An in-place pool would be safe too: every
+// block of a segment has read its pages (page-in, before the rounds)
+// before it publishes, and no block writes a page before every word of
+// its segment is in.
+__device__ __forceinline__ void segment_barrier(const Args &a, const Block &B, long long blk,
+                                                int t, int cta, bool moved, int total,
+                                                bool &seg_moved, int &below, int &seg_total) {
+  if (a.bps == 1) {
+    seg_moved = moved;
+    below = 0;
+    seg_total = total;
+    return;
+  }
+  unsigned long long *words = seg_words(a) + 1;
+  int *sc = B.scan();
+  const int lanes = cta < 32 ? cta : 32;
+  if (t < lanes) {
+    const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+    if (t == 0) {
+      __threadfence();
+      st_release(words + blk,
+                 ((unsigned long long)a.epoch << 32) | (moved ? 1ull << 31 : 0ull) |
+                     (unsigned long long)(unsigned)total);
+    }
+    __syncwarp(mask);
+    const long long first = blk - blk % a.bps;
+    const unsigned long long t0 = globaltimer_ns();
+    unsigned any = 0;
+    int low = 0, sum = 0;
+    for (long long x = first + t; x < first + a.bps; x += lanes) {
+      unsigned long long w;
+      while ((uint32_t)((w = ld_acquire(words + x)) >> 32) != a.epoch) {
+        if (globaltimer_ns() - t0 > kSegWaitNs) __trap();
+        __nanosleep(100);
+      }
+      const int need = (int)(w & 0x7FFFFFFFull);
+      any |= (unsigned)(w >> 31) & 1u;
+      sum += need;
+      if (x < blk) low += need;
+    }
+    any = __reduce_or_sync(mask, any);
+    low = __reduce_add_sync(mask, (unsigned)low);
+    sum = __reduce_add_sync(mask, (unsigned)sum);
+    if (t == 0) {
+      sc[SC_MOVED] = (int)any;
+      sc[SC_PREFIX] = low;
+      sc[SC_TOTAL] = sum;
+    }
+  }
+  __syncthreads();
+  seg_moved = sc[SC_MOVED] != 0;
+  below = sc[SC_PREFIX];
+  seg_total = sc[SC_TOTAL];
+}
+
+// page_out_cond for the block's segment (paged.py:357-384): one barrier
+// takes whether any of the block's lanes moved last or snap_index since
+// page-in, the block scan their page demands, and the segment barrier
+// both for the segment; if any lane of the segment moved the allocator
+// runs (each lane's first page is 1 + the demand before it in the
+// segment), else the tables and the sub-pool are copied through
 __device__ __forceinline__ void page_out_block(const Args &a, const Block &B, long long blk,
                                                long long i, int t, int cta, Thread &th) {
-  const bool moved =
-      !kCanSkip || __syncthreads_or(th.L.last != th.pg_last || th.L.snap_index != th.pg_snap);
-  int total = 0, page0 = 1;
-  if (moved) {
-    int k_lo;
-    page0 = 1 + block_exclusive_scan(lane_need(th.L, k_lo), B.scan(), t, cta, total);
-  }
-  lane_page_out(a, i, blk, th, moved, page0);
-  block_pool(a, blk, moved, total, t, cta);
+  const bool mine = !kCanSkip || __syncthreads_or(lane_moved(a, i, th.L));
+  int k_lo, total;
+  const int off = block_exclusive_scan(lane_need(th.L, k_lo), B.scan(), t, cta, total);
+  bool moved;
+  int below, seg_total;
+  segment_barrier(a, B, blk, t, cta, mine, total, moved, below, seg_total);
+  const long long seg = blk / a.bps;
+  lane_page_out(a, i, seg, th, moved, 1 + below + off);
+  block_pool(a, seg, (int)(blk % a.bps), moved, seg_total, t, cta);
 }
 #endif
 
@@ -3090,14 +3253,19 @@ constexpr int kBlocksPerSm = imax(1, imin(8, (int)(233472 / (Block::bytes + 1024
 __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x, cta = blockDim.x;
-  const long long blk = blockIdx.x, i = blk * cta + t;
   const bool metrics = a.flags & F_METRICS;
   const Block B{smem};
   for (int x = t; x < 2 * kAccN; x += cta) acc_row(B, x / kAccN)[x % kAccN] = 0;
+#if RAFT_PAGED
+  const long long blk = logical_block(a, B, t);
+#else
+  const long long blk = blockIdx.x;
+#endif
+  const long long i = blk * cta + t;
   Thread th;
   lane_load(a, B, i, t, th);
 #if RAFT_PAGED
-  lane_page_in(a, i, blk, th);
+  lane_page_in(a, i, blk / a.bps, th);
 #endif
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
   __syncthreads();  // every lane's outbox is in buffer 0
@@ -3111,18 +3279,20 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
 #if RAFT_CHAOS
     // the probe reads its group's flags; once every lane has read them and
     // added its recounts, the row is written (and the flags free again)
-    lane_probe(a, B, k, t, th);
-    add_recounts(th, acc_row(B, k), t, cta);
+    lane_probe(a, B, k, i, t);
+    add_recounts(a, i, acc_row(B, k), t, cta);
     __syncthreads();
     write_partials(a, B, k, blk, gridDim.x, t, cta);
 #else
     if (metrics) write_partials(a, B, k, blk, gridDim.x, t, cta);
 #endif
   }
-#if RAFT_PAGED
-  page_out_block(a, B, blk, i, t, cta, th);  // sets ERR_PAGE_EXHAUSTED before the store
-#endif
   lane_store(a, B, a.kc & 1, i, t, th);  // the last round wrote buffer kc % 2
+#if RAFT_PAGED
+  // after the store, so that the carry's registers are free for the
+  // segment barrier and the allocator
+  page_out_block(a, B, blk, i, t, cta, th);
+#endif
 }
 
 // The kernel's dynamic shared memory above 48 KB, enabled once.
@@ -3141,8 +3311,11 @@ cudaError_t enable_smem() {
 
 // ptrs: kNumPtrs device pointers in table order; dims: n, v, w, e, f, r,
 // kc, cta (lanes per CUDA block: a multiple of v that divides n, at most
-// S), pool rows per block (the paged build's allocation segment, else 0). v..r must be the Shape this library was built for. Launches on
-// `stream` and returns cudaGetLastError().
+// S), then for the paged build the pool rows per allocation segment, the
+// CUDA blocks per segment and the launch's epoch (nonzero, another than
+// the last launch's on the same scratch, when a segment spans blocks),
+// else 0, 1, 0. v..r must be the Shape this library was built for.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int raft_round(void *const *ptrs, int nptrs, const long long *dims,
                           int flags, int lag, void *stream) {
   Args a;
@@ -3187,55 +3360,70 @@ int round_host(const Args &a, int cta) {
   const long long n_blocks = a.n / cta;
   const bool metrics = a.flags & F_METRICS;
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
-  std::vector<Bits<16>> buf((Block::bytes + 15) / 16);
-  const Block B{(unsigned char *)buf.data()};
-  std::vector<Thread> th(cta);
-  for (long long blk = 0; blk < n_blocks; ++blk) {
-    for (int x = 0; x < 2 * kAccN; ++x) acc_row(B, x / kAccN)[x % kAccN] = 0;
-    for (int t = 0; t < cta; ++t) {
-      lane_load(a, B, blk * cta + t, t, th[t]);
-#if RAFT_PAGED
-      lane_page_in(a, blk * cta + t, blk, th[t]);
-#endif
-    }
-    for (int k = 0; k < a.kc; ++k) {
-      int *acc = acc_row(B, k);
+  // the paged build runs a whole allocation segment's blocks through their
+  // rounds, then the segment's page-out; the others one block at a time
+  const int bps = RAFT_PAGED ? a.bps : 1;
+  std::vector<std::vector<Bits<16>>> bufs(bps, std::vector<Bits<16>>((Block::bytes + 15) / 16));
+  std::vector<Thread> th((std::size_t)bps * cta);
+  for (long long blk0 = 0; blk0 < n_blocks; blk0 += bps) {
+    for (int j = 0; j < bps; ++j) {
+      const long long blk = blk0 + j;
+      const Block B{(unsigned char *)bufs[j].data()};
+      Thread *tb = th.data() + (std::size_t)j * cta;
+      for (int x = 0; x < 2 * kAccN; ++x) acc_row(B, x / kAccN)[x % kAccN] = 0;
       for (int t = 0; t < cta; ++t) {
-        Events ev;
-        lane_round(a, B, k, blk * cta + t, t, th[t], round_ctr, ev);
-        if (!metrics) continue;
-        for (int x = 0; x < kCounters; ++x) acc[x] += ev.v[x];
-        if (ev.bucket >= 0) acc[C_HIST0 + ev.bucket] += 1;
-        acc[C_LAT_SUM] += ev.lat;
+        lane_load(a, B, blk * cta + t, t, tb[t]);
+#if RAFT_PAGED
+        lane_page_in(a, blk * cta + t, blk / bps, tb[t]);
+#endif
       }
+      for (int k = 0; k < a.kc; ++k) {
+        int *acc = acc_row(B, k);
+        for (int t = 0; t < cta; ++t) {
+          Events ev;
+          lane_round(a, B, k, blk * cta + t, t, tb[t], round_ctr, ev);
+          if (!metrics) continue;
+          for (int x = 0; x < kCounters; ++x) acc[x] += ev.v[x];
+          if (ev.bucket >= 0) acc[C_HIST0 + ev.bucket] += 1;
+          acc[C_LAT_SUM] += ev.lat;
+        }
 #if RAFT_CHAOS
-      for (int t = 0; t < cta; ++t) {
-        lane_probe(a, B, k, t, th[t]);
-        acc[kPartUsed] += th[t].ch_reelect != NEVER;
-        acc[kPartUsed + 1] += th[t].ch_recommit != NEVER;
-      }
-      for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
-#else
-      if (metrics)
+        for (int t = 0; t < cta; ++t) {
+          const long long i = blk * cta + t;
+          lane_probe(a, B, k, i, t);
+          acc[kPartUsed] += chaos_probe(a, CH_reelect_round)[i] != NEVER;
+          acc[kPartUsed + 1] += chaos_probe(a, CH_recommit_round)[i] != NEVER;
+        }
         for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
+#else
+        if (metrics)
+          for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
 #endif
+      }
+    }
+    for (int j = 0; j < bps; ++j) {
+      const Block B{(unsigned char *)bufs[j].data()};
+      for (int t = 0; t < cta; ++t)
+        lane_store(a, B, a.kc & 1, (blk0 + j) * cta + t, t, th[(std::size_t)j * cta + t]);
     }
 #if RAFT_PAGED
-    // page_out_block, its barrier and scan as loops over the block's lanes
+    // page_out_block over the segment: its barriers and scans as loops
+    // over the segment's lanes in order
+    const long long seg = blk0 / bps;
     bool moved = !kCanSkip;
-    for (int t = 0; t < cta; ++t)
-      moved = moved || th[t].L.last != th[t].pg_last || th[t].L.snap_index != th[t].pg_snap;
+    for (std::size_t x = 0; x < th.size(); ++x)
+      moved = moved || lane_moved(a, blk0 * cta + (long long)x, th[x].L);
     int total = 0;
-    std::vector<int> page0(cta, 1);
-    for (int t = 0; moved && t < cta; ++t) {
+    std::vector<int> page0(th.size());
+    for (std::size_t x = 0; x < th.size(); ++x) {
       int k_lo;
-      page0[t] = 1 + total;
-      total += lane_need(th[t].L, k_lo);
+      page0[x] = 1 + total;
+      total += lane_need(th[x].L, k_lo);
     }
-    for (int t = 0; t < cta; ++t) lane_page_out(a, blk * cta + t, blk, th[t], moved, page0[t]);
-    block_pool(a, blk, moved, total, 0, 1);
+    for (std::size_t x = 0; x < th.size(); ++x)
+      lane_page_out(a, blk0 * cta + (long long)x, seg, th[x], moved, page0[x]);
+    for (int j = 0; j < bps; ++j) block_pool(a, seg, j, moved, total, 0, 1);
 #endif
-    for (int t = 0; t < cta; ++t) lane_store(a, B, a.kc & 1, blk * cta + t, t, th[t]);
   }
   return 0;
 }

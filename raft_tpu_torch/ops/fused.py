@@ -1243,10 +1243,10 @@ def fused_rounds(
 
     chaos: the chaos carry (chaos/device.py); its faults apply around
     every round, begin_round after routing and end_round (given the
-    outbox delivered this round) after the round, on the fat carry.
+    outbox delivered this round) after the round, on the fat carry; with
+    paging, inside it (page_in, the chaos round, page_out in the stored
+    domain), as the JAX package orders them.
     Returns (state, fab[, metrics][, chaos][, paged])."""
-    if chaos is not None and paged is not None:
-        raise NotImplementedError(CHAOS_PAGED)
     load, store = carry_boundary(state)
     state, fab = store(state, fab)
     inkernel = paged is not None and paged_inkernel
@@ -1307,12 +1307,6 @@ def fused_rounds(
     return out
 
 
-# chaos with paging: the JAX kernel composes them (raft_tpu/ops/
-# pallas_round.py:589-730); the port refuses them together by name
-CHAOS_PAGED = ("the chaos plane with the paged entry log is not ported to "
-               "raft_tpu_torch yet (ROADMAP Queue 2: chaos branch x in-kernel paging)")
-
-
 class FusedCluster:
     """G raft groups x V voters on the fused round: canonical ids 1..V per
     group, group g on lanes [g*V, (g+1)*V). Runs on `cuda` unless the caller
@@ -1331,11 +1325,13 @@ class FusedCluster:
     (chaos/device.py; off by default, as RAFT_TPU_CHAOS is), its PRNG
     stream drawn from seed + chaos_seed (RAFT_TPU_CHAOS_SEED); its knobs
     are set with set_chaos, usually by a chaos/schedule.py ChaosRunner;
-    chaos with paged raises NotImplementedError. engine: "xla"
-    (default: the eager round of this module) or "pallas" (ops/pallas_round.py: K rounds per launch of the CUDA round
-    kernel; tile_lanes, default pallas_round.default_tile, and
-    rounds_per_call K, default 1, are checked here and raise TileError /
-    ValueError). **cfg: LaneConfig overrides (election_tick, pre_vote, ...)."""
+    it composes with paged in both modes. engine: "xla" (default: the
+    eager round of this module) or "pallas" (ops/pallas_round.py: K rounds
+    per launch of the CUDA round kernel; tile_lanes, default
+    pallas_round.default_tile, and rounds_per_call K, default 1, are
+    checked here and raise TileError / ValueError; under in-kernel paging
+    on the card a tile's CUDA blocks must all fit the card at once).
+    **cfg: LaneConfig overrides (election_tick, pre_vote, ...)."""
 
     def __init__(
         self,
@@ -1403,8 +1399,6 @@ class FusedCluster:
         self._no_ops = no_ops(n, self.device)
         self.metrics = metmod.init_metrics(n, self.device) if metrics else None
         self._metrics_acc = CounterAccumulator() if metrics else None
-        if chaos and paged:
-            raise NotImplementedError(CHAOS_PAGED)
         self.chaos = (
             chmod.init_chaos(n, n_voters, seed, chaos_seed, device=self.device) if chaos else None
         )
@@ -1413,18 +1407,20 @@ class FusedCluster:
         self.engine = plr.resolve_engine(engine)
         self._pallas_tile = self._pallas_rounds = None
         self._paged_inkernel = bool(paged and paged_inkernel)
-        if self.engine == "pallas":
-            self._pallas_rounds = self._resolve_pallas_rounds(rounds_per_call)
-            self._pallas_tile = self._resolve_pallas_tile(tile_lanes)
         # the paged entry log: the plan is checked here (raise, never fall
         # back) and the full-window carry split into its resident tail and
         # the pool. _paged_segs is the allocation segments the host views
         # read the page ids under: 1, or one per lane tile when the pallas
-        # engine pages in the kernel.
+        # engine pages in the kernel. _segments: the segment barrier's
+        # scratch on the card when a tile spans CUDA blocks.
         self.paged = None
         self._paged_segs = 1
+        self._segments = None
+        plan = pgmod.validate_page_plan(self.shape, n) if paged else None
+        if self.engine == "pallas":
+            self._pallas_rounds = self._resolve_pallas_rounds(rounds_per_call)
+            self._pallas_tile = self._resolve_pallas_tile(tile_lanes, plan)
         if paged:
-            plan = pgmod.validate_page_plan(self.shape, n)
             if self._paged_inkernel and self.engine == "pallas":
                 self._paged_segs = n // self._pallas_tile
                 pgmod.check_pool_segments(plan, self._paged_segs)
@@ -1475,27 +1471,32 @@ class FusedCluster:
 
         return plr.pallas_rounds(
             self.state, self.fab, ops, self.mute, tile_lanes=self._pallas_tile,
-            rounds_per_call=self._pallas_rounds, **kw,
+            rounds_per_call=self._pallas_rounds, segments=self._segments, **kw,
         )
 
-    def _resolve_pallas_tile(self, tile_lanes: int | None) -> int:
-        """The lane tile: tile_lanes, else default_tile (under in-kernel
-        paging the engine's CUDA block, which is the tile there:
-        pallas_round.paged_tile); TileError if it breaks the group
-        alignment, or, in-kernel paging on the card, if the kernel cannot
-        run it as one CUDA block."""
+    def _resolve_pallas_tile(self, tile_lanes: int | None, plan=None) -> int:
+        """The lane tile: tile_lanes, else default_tile, as in the JAX
+        package (under in-kernel paging the allocation segment); TileError
+        if it breaks the group alignment, or, in-kernel paging on the card,
+        if its CUDA blocks cannot all be resident at once (checked once,
+        here: the library is built and asked for its occupancy). Keeps the
+        segment barrier's scratch when a tile spans CUDA blocks there."""
         from raft_tpu_torch.ops import pallas_round as plr
+        from raft_tpu_torch.ops import round_cuda
 
         n = self.shape.n_lanes
-        if tile_lanes is not None:
-            t = tile_lanes
-        elif self._paged_inkernel:
-            t = plr.paged_tile(self.shape)
-        else:
-            t = plr.default_tile(n, self.v)
+        t = tile_lanes if tile_lanes is not None else plr.default_tile(n, self.v)
         plr.check_tile(n, self.v, t)
         if self._paged_inkernel and self.device.type == "cuda":
-            plr.check_paged_block(self.shape, t)
+            chaos = self.chaos is not None
+            # the block and its shared memory first: the occupancy query
+            # builds the library
+            cta = plr.check_paged_block(self.shape, t, chaos=chaos)
+            resident = round_cuda.resident_blocks(plr.shape_dims(self.shape), cta, self.device,
+                                                  self._diet, (plan.w_res, plan.pe, plan.m), chaos)
+            plr.check_paged_block(self.shape, t, cta, resident=resident, chaos=chaos)
+            if t > cta:
+                self._segments = round_cuda.Segments(n // cta, self.device)
         return t
 
     def _resolve_pallas_rounds(self, rounds_per_call: int | None) -> int:

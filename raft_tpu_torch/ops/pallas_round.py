@@ -44,15 +44,18 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   (paged_inkernel) hands the resident tails and the PagedLog to the
   kernel's paged build: each lane tile is one allocation segment with its
   own sub-pool and is paged in at the top of a launch and out (with the
-  allocator skipped where no lane moved) at its end. On the card a tile is
-  one CUDA block (`check_paged_block`: at most MAX_CTA lanes and within
-  MAX_SMEM, TileError otherwise); the default tile there is the engine's
-  CUDA block (`paged_tile`).
+  allocator skipped where no lane of the tile moved) at its end. The
+  default tile is JAX's, `default_tile`; on the card a tile is
+  tile_lanes / cta CUDA blocks that meet at a segment barrier before they
+  page out (csrc/round.cu), so they must all fit the card at once
+  (`check_paged_block`, TileError otherwise). Chaos composes with both
+  modes (the chaos build with paging, round_cuda.target(chaos=True,
+  plan=...)): paging is invisible to a chaos trajectory, since a crash
+  wipe keeps the log.
 
 Not carried over from the JAX engine: the trace plane (it raises
 NotImplementedError at FusedCluster construction, as on the eager path),
-chaos together with paging (NotImplementedError, ROADMAP), the Mosaic
-(tile, K) autotune sweep, interpret mode,
+the Mosaic (tile, K) autotune sweep, interpret mode,
 and the engine fallback: a build or launch failure raises, and
 engine="pallas" never becomes "xla" on its own. The port reads no
 environment variables: the engine, tile and K are constructor arguments.
@@ -162,35 +165,47 @@ def default_tile(n: int, v: int) -> int:
     return best if best is not None else cands[0]
 
 
-def _shape_dims(shape) -> dict:
+def shape_dims(shape) -> dict:
+    """The Shape's {v, w, e, f, r} (round_cuda's dims)."""
     return {"v": shape.max_peers, "w": shape.log_window, "e": shape.max_msg_entries,
             "f": shape.max_inflight, "r": shape.max_read_index}
 
 
-def paged_tile(shape) -> int:
-    """The default tile under in-kernel paging: the CUDA block the engine
-    would pick for the batch (round_cuda.cta_lanes), since on the card the
-    tile is one CUDA block."""
-    return round_cuda.cta_lanes(shape.n_lanes, shape.max_peers, _shape_dims(shape))
+def paged_cta(shape, tile_lanes: int, chaos: bool = False) -> int:
+    """The CUDA block of the paged build for a lane tile: the engine's
+    (round_cuda.cta_lanes), within the paged build's shared memory."""
+    return round_cuda.cta_lanes(tile_lanes, shape.max_peers, shape_dims(shape),
+                                chaos=chaos, paged=True)
 
 
-def check_paged_block(shape, tile_lanes: int) -> None:
-    """In-kernel paging on the card runs each tile as one CUDA block (one
-    allocation segment, one block scan): TileError, naming the limit, for a
-    tile the kernel cannot run so."""
-    if tile_lanes > round_cuda.MAX_CTA:
+def check_paged_block(shape, tile_lanes: int, cta: int | None = None, *,
+                      resident: int | None = None, chaos: bool = False) -> int:
+    """In-kernel paging on the card runs each lane tile (one allocation
+    segment) as tile_lanes / cta CUDA blocks that meet at a barrier in
+    device memory. TileError, naming the numbers, unless the block (default
+    paged_cta) divides the tile, fits MAX_SMEM, and, given `resident` (the
+    blocks the card holds at once, round_cuda.resident_blocks), the
+    segment's blocks all fit the card at once. Returns the block."""
+    d = shape_dims(shape)
+    cta = cta or paged_cta(shape, tile_lanes, chaos)
+    if tile_lanes % cta:
         raise TileError(
-            f"tile_lanes={tile_lanes} exceeds MAX_CTA={round_cuda.MAX_CTA}: in-kernel "
-            "paging on the card runs each lane tile as one CUDA block"
+            f"tile_lanes={tile_lanes} is not a multiple of the CUDA block of {cta} lanes: "
+            "in-kernel paging on the card runs each lane tile as whole CUDA blocks"
         )
-    d = _shape_dims(shape)
-    smem = round_cuda.smem_bytes(d, tile_lanes, paged=True)
+    smem = round_cuda.smem_bytes(d, cta, paged=True, chaos=chaos)
     if smem > round_cuda.MAX_SMEM:
         raise TileError(
-            f"tile_lanes={tile_lanes} at {round_cuda.shape_name(d)} needs {smem} bytes of "
-            f"shared memory, over MAX_SMEM={round_cuda.MAX_SMEM}: in-kernel paging on the "
-            "card runs each lane tile as one CUDA block"
+            f"a CUDA block of {cta} lanes at {round_cuda.shape_name(d)} needs {smem} bytes "
+            f"of shared memory, over MAX_SMEM={round_cuda.MAX_SMEM}"
         )
+    if resident is not None and tile_lanes // cta > resident:
+        raise TileError(
+            f"tile_lanes={tile_lanes} is {tile_lanes // cta} CUDA blocks of {cta} lanes, "
+            f"over the {resident} this card holds at once: the blocks of an allocation "
+            "segment wait for each other at its barrier"
+        )
+    return cta
 
 
 # --------------------------------------------------------------------------
@@ -200,7 +215,7 @@ def check_paged_block(shape, tile_lanes: int) -> None:
 def round_kernel_ref(
     state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops=True,
     ops_round0_only=True, do_tick=True, auto_propose=False, auto_compact_lag=None,
-    paged=None, chaos=None,
+    paged=None, chaos=None, seg_lanes=None,
 ):
     """What one launch of csrc/round.cu computes, in plain PyTorch: kc
     rounds of route_fabric -> fused_round on the carry, its storage
@@ -209,19 +224,17 @@ def round_kernel_ref(
     ops applied (when apply_ops) in round 0 only or in every round, and
     with metrics on (sampler given) fresh zeroed delta slots each round,
     one row per run of `cta` lanes. With `paged` (the paged build: the
-    state's log leaves are resident tails) each run of `cta` lanes is an
-    allocation segment: page_in on the stored carry at the top, the rounds
-    on the full window, and page_out_cond after the last store, as
-    raft_tpu/ops/pallas_round.py:589-597 and :707-725 order them. With
-    `chaos` (a ChaosState: its round, heal_round and seed the launch's
-    scalars) chaos.begin_round after routing and end_round after each
-    round, over global lanes, as :616-700 order them, and each row's
-    chaos slots the block's recounts. Returns (state, fab, sampler,
-    partials [kc, n / cta, PARTIAL_WIDTH] or None), then the PagedLog
-    when paged and the probe columns (chaos.PROBES) when chaos, as
-    round_cuda.round_call does."""
-    if chaos is not None and paged is not None:
-        raise NotImplementedError(fmod.CHAOS_PAGED)
+    state's log leaves are resident tails) each run of `seg_lanes` lanes
+    (default cta) is an allocation segment: page_in on the stored carry at
+    the top, the rounds on the full window, and page_out_cond after the
+    last store, as raft_tpu/ops/pallas_round.py:589-597 and :707-725 order
+    them. With `chaos` (a ChaosState: its round, heal_round and seed the
+    launch's scalars) chaos.begin_round after routing and end_round after
+    each round, over global lanes, as :616-700 order them, and each row's
+    chaos slots the block's recounts; with both, inside the paging, as
+    :589-730. Returns (state, fab, sampler, partials [kc, n / cta,
+    PARTIAL_WIDTH] or None), then the PagedLog when paged, then the probe
+    columns (chaos.PROBES) when chaos, as round_cuda.round_call does."""
     n = state.term.shape[0]
     dev = state.term.device
     rows = n // cta
@@ -236,7 +249,7 @@ def round_kernel_ref(
         )
     load, store = fmod.carry_boundary(state)
     st, fb = store(state, fab)
-    segs = n // cta
+    segs = n // (seg_lanes or cta)
     if paged is not None:
         st, paged = pgmod.page_in(st, paged, segs)
         last_pre, snap_pre = st.last.to(I32), st.snap_index.to(I32)
@@ -275,16 +288,17 @@ def round_kernel_ref(
         if row:
             row = torch.cat(row, dim=1)
             parts.append(torch.nn.functional.pad(row, (0, PARTIAL_WIDTH - row.shape[1])))
+    if paged is not None:
+        can_skip = fab.rep.ent_term.shape[-1] <= paged.w_res
+        st, paged = pgmod.page_out_cond(st, paged, last_pre, snap_pre, can_skip=can_skip,
+                                        segs=segs)
     samp = (mt.samp_index, mt.samp_round) if mt is not None else None
     out = (st, fb, samp, torch.stack(parts) if parts else None)
+    if paged is not None:
+        out += (paged,)
     if ch is not None:
-        return out + (tuple(getattr(ch, p) for p in chmod.PROBES),)
-    if paged is None:
-        return out
-    can_skip = fab.rep.ent_term.shape[-1] <= paged.w_res
-    st, paged = pgmod.page_out_cond(out[0], paged, last_pre, snap_pre, can_skip=can_skip,
-                                    segs=segs)
-    return (st,) + out[1:] + (paged,)
+        out += (tuple(getattr(ch, p) for p in chmod.PROBES),)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -345,14 +359,16 @@ def pallas_rounds(
     metrics: metmod.MetricsState | None = None,
     chaos: chmod.ChaosState | None = None,
     paged: pgmod.PagedLog | None = None,
+    segments: round_cuda.Segments | None = None,
 ):
     """n_rounds fused rounds as launches of K = rounds_per_call rounds each,
     plus one remainder launch when K does not divide n_rounds. Same
     contract and trajectory as ops/fused.py fused_rounds (module doc).
-    Returns (state, fab[, metrics][, chaos][, paged])."""
+    segments: the segment barrier's scratch of in-kernel paging on the
+    card when a tile spans CUDA blocks (FusedCluster keeps one; default a
+    fresh one a launch). Returns (state, fab[, metrics][, chaos][,
+    paged])."""
     validate_round_plan(rounds_per_call)
-    if chaos is not None and paged is not None:
-        raise NotImplementedError(fmod.CHAOS_PAGED)
     state, fab = fmod.carry_boundary(state)[1](state, fab)
     inkernel = paged is not None and paged_inkernel
     if paged is not None and not inkernel:
@@ -369,8 +385,9 @@ def pallas_rounds(
                 "allocation); pin RAFT_TPU_POOL_PAGES / "
                 "RAFT_TPU_PALLAS_TILE so the pool splits evenly"
             )
-        # one tile is one allocation segment, and on the card one CUDA block
-        cta = tile_lanes
+        # one tile is one allocation segment: tile_lanes / cta CUDA blocks
+        cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v, paged),
+                                   chaos=chaos is not None, paged=True)
     else:
         cta = round_cuda.cta_lanes(tile_lanes, v, round_cuda.dims_of(state, fab, v),
                                    chaos=chaos is not None)
@@ -388,7 +405,7 @@ def pallas_rounds(
             ops_round0_only=ops_first_round_only,
             do_tick=do_tick, auto_propose=auto_propose,
             auto_compact_lag=auto_compact_lag, paged=paged if inkernel else None,
-            chaos=chaos,
+            chaos=chaos, seg_lanes=tile_lanes, segments=segments,
         )
         state, fab, sampler, parts = out[:4]
         if inkernel:
@@ -396,7 +413,7 @@ def pallas_rounds(
         if metrics is not None:
             metrics = fold_partials(metrics, sampler, parts, k)
         if chaos is not None:
-            chaos = fold_chaos(chaos, out[4], parts, k, metrics is not None)
+            chaos = fold_chaos(chaos, out[-1], parts, k, metrics is not None)
     if paged is not None and not inkernel:
         state, paged = pgmod.page_out(state, paged)
     elif paged is None:

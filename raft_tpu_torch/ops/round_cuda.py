@@ -10,19 +10,25 @@ The launches are counted in `KERNELS["round_kernel"].launches`, those of
 the diet-v2 build (a packed carry, state.is_packed) in
 `KERNELS["round_kernel_diet"].launches`, and those of the paged builds (a
 `paged=` sidecar: in-kernel paging) in `round_kernel_paged` and
-`round_kernel_paged_diet`, and those of the chaos builds (a `chaos=`
-ChaosState) in `round_kernel_chaos` and `round_kernel_chaos_diet`.
+`round_kernel_paged_diet`, those of the chaos builds (a `chaos=`
+ChaosState) in `round_kernel_chaos` and `round_kernel_chaos_diet`, and
+those of the builds with both in `round_kernel_chaos_paged` and
+`round_kernel_chaos_paged_diet`.
 
-| kernel                  | replaces (raft_tpu/ops/pallas_round.py)            |
-| round_kernel            | make_call(kc).kernel :564, pl.pallas_call :745     |
-| round_kernel_diet       | the same, its packed-carry branch :599-603,        |
-|                         | :655-660, :707-710                                 |
-| round_kernel_paged      | the same, its in-kernel paging branch :589-597,    |
-|                         | :711-725                                           |
-| round_kernel_paged_diet | the paging branch on the packed carry              |
-| round_kernel_chaos      | the same, its chaos branch :616-634, :670-700,     |
-|                         | :728-730 (fold :826-834)                           |
-| round_kernel_chaos_diet | the chaos branch on the packed carry               |
+| kernel                        | replaces (raft_tpu/ops/pallas_round.py)      |
+| round_kernel                  | make_call(kc).kernel :564, pl.pallas_call    |
+|                               | :745                                         |
+| round_kernel_diet             | the same, its packed-carry branch :599-603,  |
+|                               | :655-660, :707-710                           |
+| round_kernel_paged            | the same, its in-kernel paging branch        |
+|                               | :589-597, :711-725                           |
+| round_kernel_paged_diet       | the paging branch on the packed carry        |
+| round_kernel_chaos            | the same, its chaos branch :616-634,         |
+|                               | :670-700, :728-730 (fold :826-834)           |
+| round_kernel_chaos_diet       | the chaos branch on the packed carry         |
+| round_kernel_chaos_paged      | the chaos branch composed with in-kernel     |
+|                               | paging, :589-730                             |
+| round_kernel_chaos_paged_diet | the same on the packed carry                 |
 
 The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
@@ -42,15 +48,21 @@ which bounds its lane count (`cta_lanes`).
 
 Paged (ops/paged.py, `paged=` given): the paged build (-DRAFT_PAGED=1 with
 the plan's RAFT_WRES, RAFT_PE, RAFT_M) takes the resident [N, W_res] log
-rows and the PagedLog leaves, in and out; a CUDA block is one allocation
-segment, so the block is the engine's lane tile and the pool's rows per
-block are a runtime dimension.
+rows and the PagedLog leaves, in and out. An allocation segment is the
+engine's lane tile (`seg_lanes`), `seg_lanes / cta` CUDA blocks that meet
+at a barrier in device memory before they page out; the pool's rows per
+segment, the blocks per segment and the launch's epoch are runtime
+dimensions, and the barrier's scratch (`Segments`: a ticket counter and a
+word a block) is the caller's, kept across launches. The blocks of a
+segment must all fit the card at once (`resident_blocks`).
 
 Chaos (chaos/device.py, `chaos=` given): the chaos build (-DRAFT_CHAOS=1)
 takes seven knob columns (RAFT_CHAOS_KNOBS), three probe columns in and
 out (RAFT_CHAOS_PROBES) and the scalars round, heal_round and seed (the
-ChaosState's own 0-d tensors), after the table's other pointers; the partials row is written with
-metrics or chaos on. Chaos with paging is refused (NotImplementedError).
+ChaosState's own 0-d tensors), after the table's other pointers; the
+partials row is written with metrics or chaos on. With paging too, the
+build takes both (-DRAFT_CHAOS=1 -DRAFT_PAGED=1), the paged pointers
+first.
 """
 
 from __future__ import annotations
@@ -65,7 +77,7 @@ import torch
 
 from raft_tpu_torch import build
 from raft_tpu_torch.chaos import device as chmod
-from raft_tpu_torch.ops.fused import CHAOS_PAGED, Fabric, LocalOps
+from raft_tpu_torch.ops.fused import Fabric, LocalOps
 from raft_tpu_torch.ops.paged import LEAVES, LOG_COLS
 from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
 from raft_tpu_torch.state import LaneConfig, RaftState, is_packed
@@ -79,13 +91,15 @@ MAX_SMEM = 232_448  # shared memory one block can use on the H100 (227 KB)
 PARTIAL_WIDTH = 128  # csrc/round.cu kPartialWidth
 PART_USED = 25  # csrc/round.cu kPartUsed
 CHAOS_PART = 2  # csrc/round.cu kChaosPart: the recount slots of the chaos build
+SCAN_SLOTS = MAX_CTA // 32 + 4  # csrc/round.cu kScanSlots: warp totals, id, segment
 
 _P = ctypes.c_void_p
 _ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
 KERNELS = {
     name: Kernel(name, "raft_round", _ROUND_ARGS, lib="round")
     for name in ("round_kernel", "round_kernel_diet", "round_kernel_paged",
-                 "round_kernel_paged_diet", "round_kernel_chaos", "round_kernel_chaos_diet")
+                 "round_kernel_paged_diet", "round_kernel_chaos", "round_kernel_chaos_diet",
+                 "round_kernel_chaos_paged", "round_kernel_chaos_paged_diet")
 }
 _SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1, "U16": 2, "U8": 1}
 _RINGS = ("WIN", "INFL", "READ", "READ_PEER")
@@ -244,7 +258,7 @@ def paged_plan(paged) -> tuple[int, int, int]:
 
 
 def kernel_name(diet: bool, paged: bool, chaos: bool = False) -> str:
-    return ("round_kernel" + ("_paged" if paged else "") + ("_chaos" if chaos else "")
+    return ("round_kernel" + ("_chaos" if chaos else "") + ("_paged" if paged else "")
             + ("_diet" if diet else ""))
 
 
@@ -277,8 +291,6 @@ def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
     chaos."""
     paged = ()
     if plan is not None:
-        if chaos:
-            raise NotImplementedError(CHAOS_PAGED)
         paged = (("RAFT_PAGED", 1),) + tuple(zip(("RAFT_WRES", "RAFT_PE", "RAFT_M"), plan))
     return build.Target(
         "round",
@@ -293,8 +305,9 @@ def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> i
     (csrc/round.cu Block): with S = stride(cta), the rings (but THROUGH) at
     stride S, two fabric buffers at stride S + 1, two partials rows (with
     the chaos build's two recount slots), in the paged build one row of
-    warp totals, and in the chaos build one probe-flag byte a lane; each
-    region padded to 16 bytes."""
+    warp totals and four ints of the segment barrier (SCAN_SLOTS), and in
+    the chaos build one probe-flag byte a lane; each region padded to 16
+    bytes."""
     v, w, e, f, r = (d[k] for k in "vwefr")
     elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
              "READ_PEER": r * v, "ENT": v * e}
@@ -312,35 +325,87 @@ def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> i
     rings = pad(4 * count("STATE", _RINGS, 4) * sr) + pad(count("STATE", _RINGS, 1) * sr)
     fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
     acc = pad(4 * (PART_USED + (CHAOS_PART if chaos else 0)))
-    return (rings + 2 * fab + 2 * acc + (pad(4 * (MAX_CTA // 32)) if paged else 0)
+    return (rings + 2 * fab + 2 * acc + (pad(4 * SCAN_SLOTS) if paged else 0)
             + (pad(sr) if chaos else 0))
 
 
 def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
-              target: int = CTA_TARGET, chaos: bool = False) -> int:
+              target: int = CTA_TARGET, chaos: bool = False, paged: bool = False) -> int:
     """Lanes per CUDA block: the largest multiple of v that divides the tile
     and is at most `target` (else the smallest such multiple), at most
     MAX_CTA and, given the Shape `dims`, within MAX_SMEM (of the chaos
-    build with chaos) where one is."""
+    build with chaos, of the paged build with paged) where one is. Cached:
+    the engines ask once a dispatch."""
+    key = None if dims is None else tuple(dims[k] for k in "vwefr")
+    return _cta_lanes(tile_lanes, v, key, target, chaos, paged)
+
+
+@functools.cache
+def _cta_lanes(tile_lanes: int, v: int, key, target: int, chaos: bool, paged: bool) -> int:
+    dims = None if key is None else dict(zip("vwefr", key))
     cands = [c for c in range(v, min(tile_lanes, MAX_CTA) + 1, v) if tile_lanes % c == 0]
     if not cands:
         raise ValueError(f"no CUDA block of <= {MAX_CTA} lanes covers whole groups of "
                          f"tile_lanes={tile_lanes}, v={v}")
     if dims is not None:  # where none fits, pack refuses the launch by name
-        cands = [c for c in cands if smem_bytes(dims, c, chaos=chaos) <= MAX_SMEM] or cands
+        cands = [c for c in cands
+                 if smem_bytes(dims, c, paged=paged, chaos=chaos) <= MAX_SMEM] or cands
     small = [c for c in cands if c <= target]
     return max(small) if small else min(cands)
 
 
+class Segments:
+    """The segment barrier's scratch of the paged builds (csrc/round.cu
+    P_SEG): int64 [1 + blocks], the ticket counter and one word a CUDA
+    block, zeroed once; and the epoch that tags each launch's words, so
+    that nothing is reset between launches. One per cluster (its launches
+    run in order on one stream)."""
+
+    def __init__(self, blocks: int, device):
+        self.words = torch.zeros((1 + blocks,), dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        """The next launch's epoch: 1..2^32 - 1, never the last one's."""
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
+def occupancy(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
+              device=None) -> dict:
+    """csrc/round.cu raft_round_info for the library of Shape d and blocks
+    of cta lanes (built if needed): shared memory of a block, resident
+    blocks per SM, registers and local (stack) bytes per thread, as the
+    runtime reports them."""
+    fn = build.load(library(d, cta, diet, plan, chaos)).raft_round_info
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = fn(cta, out)
+    if err:
+        raise RuntimeError(f"raft_round_info({cta}) failed: CUDA error {err}")
+    return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2], local_bytes=out[3])
+
+
+def resident_blocks(d: dict, cta: int, device, diet: bool = False, plan=None,
+                    chaos: bool = False) -> int:
+    """CUDA blocks of cta lanes of the library for Shape d that the card
+    holds at once: resident blocks per SM (occupancy) times the SMs."""
+    per_sm = occupancy(d, cta, diet, plan, chaos, device)["blocks_per_sm"]
+    return int(per_sm) * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
-         ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None, chaos=None):
+         ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None, chaos=None,
+         seg_lanes=None, segments=None):
     """Check every leaf and allocate the outputs; returns (pointer list,
     dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
     and, given `paged`, the PagedLog out, given `chaos`, the probe columns
-    out."""
+    out. seg_lanes: the paged build's allocation segment (default one
+    CUDA block); segments: the barrier's scratch when a segment spans
+    blocks (default a fresh one)."""
     _check_layout()
-    if chaos is not None and paged is not None:
-        raise NotImplementedError(CHAOS_PAGED)
     n = state.term.shape[0]
     d = dims_of(state, fab, v, paged)
     check_shape(d)
@@ -366,14 +431,26 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
             _check(f"{g.lower()}.{name}", x, DTYPES[dt], shape, dev)
             if x.data_ptr() % 16:  # the kernel moves a lane's row in 16-byte accesses
                 raise ValueError(f"{g.lower()}.{name} must start 16-byte aligned")
-    pool_rows = 0
+    pool_rows, bps, epoch, seg_words = 0, 1, 0, None
     pg_in = [None] * len(PAGED_LEAVES)
     if paged is not None:
         w_res, pe, m = paged_plan(paged)
         p = paged.pool_term.shape[0]
-        if p % (n // cta):
-            raise ValueError(f"pool_pages={p} does not split over {n // cta} CUDA blocks")
-        pool_rows = p // (n // cta)
+        seg_lanes = seg_lanes or cta
+        if seg_lanes % cta or n % seg_lanes:
+            raise ValueError(f"bad segment layout: n={n}, seg_lanes={seg_lanes}, cta={cta}")
+        n_segs, bps = n // seg_lanes, seg_lanes // cta
+        if p % n_segs:
+            raise ValueError(f"pool_pages={p} does not split over {n_segs} allocation segments")
+        pool_rows = p // n_segs
+        if bps > 1:
+            segments = segments or Segments(n // cta, dev)
+            seg_words = segments.words
+            if seg_words.device != dev or seg_words.dtype != torch.int64 or (
+                    seg_words.shape[0] < 1 + n // cta):
+                raise ValueError(f"segments: int64 [>= {1 + n // cta}] on {dev}, got "
+                                 f"{seg_words.dtype} {tuple(seg_words.shape)} on {seg_words.device}")
+            epoch = segments.next_epoch()
         pg_in = [getattr(paged, k) for k in PAGED_LEAVES]
         want = {"pt": (torch.uint16, (n, m))}
         for col, pool in zip(LOG_LEAVES, PAGED_LEAVES[1:4]):
@@ -420,7 +497,7 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     ptrs += [ptr(round_ctr if metrics else None)]
     ptrs += [ptr(x) for x in st_out + fab_out + samp_out] + [ptr(parts)]
     pg_out = [None if x is None else torch.empty_like(x) for x in pg_in]
-    ptrs += [ptr(x) for x in pg_in + pg_out]
+    ptrs += [ptr(x) for x in pg_in + pg_out] + [ptr(seg_words)]
     probe_out = []
     if chaos is not None:  # the chaos build's pointers close the table
         probe_out = [torch.empty_like(getattr(chaos, p)) for p in chmod.PROBES]
@@ -431,7 +508,7 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
         | (F_LAG if auto_compact_lag is not None else 0) | (F_OPS if apply_ops else 0)
         | (F_OPS_ROUND0 if ops_round0_only else 0)
     )
-    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta, pool_rows]
+    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta, pool_rows, bps, epoch]
     outputs = (
         _state_from_leaves(state, st_out),
         _fab_from_leaves(fab, fab_out),
@@ -451,25 +528,29 @@ def as_c_args(ptrs, dims):
 
 def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
                apply_ops=True, ops_round0_only=True, do_tick=True,
-               auto_propose=False, auto_compact_lag=None, paged=None, chaos=None):
+               auto_propose=False, auto_compact_lag=None, paged=None, chaos=None,
+               seg_lanes=None, segments=None):
     """kc rounds in one launch. state/fab: the slim carry, or the diet-v2
     packed carry (the diet build of the kernel runs it); sampler:
     (samp_index, samp_round) with metrics on, else None; round_ctr: the
     metrics round counter ([] int32 tensor); paged: the PagedLog of a paged
-    carry (the state's log leaves its resident tails): each block of cta
-    lanes pages in, runs the rounds and pages out over its own sub-pool;
-    chaos: the ChaosState (chaos/device.py) whose faults the rounds apply,
-    from its round, heal_round and seed. Returns (state, fab, sampler,
-    partials [kc, n / cta, PARTIAL_WIDTH] int32 or None), then the
-    PagedLog when paged, or the probe columns (chaos.PROBES) when chaos."""
+    carry (the state's log leaves its resident tails): each allocation
+    segment of seg_lanes lanes (default cta: one CUDA block; `segments`
+    the barrier's scratch when it spans blocks, default a fresh one) pages
+    in, runs the rounds and pages out over its own sub-pool; chaos: the
+    ChaosState (chaos/device.py) whose faults the rounds apply, from its
+    round, heal_round and seed. Returns (state, fab, sampler, partials
+    [kc, n / cta, PARTIAL_WIDTH] int32 or None), then the PagedLog when
+    paged, then the probe columns (chaos.PROBES) when chaos."""
     kw = dict(v=v, kc=kc, cta=cta, apply_ops=apply_ops, ops_round0_only=ops_round0_only,
               do_tick=do_tick, auto_propose=auto_propose,
-              auto_compact_lag=auto_compact_lag, paged=paged, chaos=chaos)
+              auto_compact_lag=auto_compact_lag, paged=paged, chaos=chaos, seg_lanes=seg_lanes)
     if state.term.device.type == "cpu":
         from raft_tpu_torch.ops.pallas_round import round_kernel_ref
 
         return round_kernel_ref(state, fab, ops, mute, sampler, round_ctr, **kw)
-    ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr, **kw)
+    ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr,
+                                           segments=segments, **kw)
     diet = is_packed(state)
     plan = paged_plan(paged) if paged is not None else None
     t = library(dims_of(state, fab, v, paged), cta, diet, plan, chaos is not None)

@@ -29,8 +29,9 @@ class BlockedFusedCluster:
     paged_inkernel / chaos / chaos_seed / engine / tile_lanes /
     rounds_per_call pass through to every block (FusedCluster); a paged
     Shape's plan is checked for one block's lanes before any block
-    allocates. Chaos columns are set and read in global lane order
-    (set_chaos, chaos_columns)."""
+    allocates, and each block pages over its own segments. Chaos columns
+    are set and read in global lane order (set_chaos, chaos_columns), with
+    paging as without."""
 
     def __init__(
         self,

@@ -15,7 +15,8 @@ BlockedFusedCluster through 33 faulted rounds at V = 3 (slim) and V = 5
 (diet, then through a fast-forward and the automatic rebase); JAX's
 pallas_rounds in interpret mode (2 tiles, K = 2) against the port's; a
 ChaosRunner schedule through both packages' runners; and chaos with
-paging refused by name.
+paging constructed and run (tests/test_torch_chaos_paged.py holds it
+against JAX).
 
 Every JAX cluster run dispatches 3 rounds at a time, so each cluster
 configuration compiles one program, shared by every test of the module.
@@ -403,9 +404,14 @@ def test_crash_freezes_lane_and_preserves_hardstate():
 
 
 def test_chaos_with_paging_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="chaos branch x in-kernel paging"):
-        tfused.FusedCluster(G, 3, shape=Shape(**_shape(3), page_window=4, page_entries=2),
-                            device="cpu", chaos=True, paged=True)
+    """Chaos with paging is no longer refused: it constructs and runs on
+    both engines in both paging modes. What is still refused by name: the
+    chaos calls of a cluster without the plane, and a runner over one."""
+    shape = Shape(**_shape(3), page_window=4, page_entries=2)
+    for kw in (dict(), dict(paged_inkernel=True), dict(engine="pallas", paged_inkernel=True)):
+        c = tfused.FusedCluster(G, 3, shape=shape, device="cpu", chaos=True, paged=True, **kw)
+        c.run(3, **RUN)
+        assert c.paged is not None and int(c.chaos.round) == 3
     c = tfused.FusedCluster(G, 3, shape=Shape(**_shape(3)), device="cpu")
     with pytest.raises(RuntimeError, match="chaos plane is off"):
         c.set_chaos(heal_round=0)

@@ -249,15 +249,52 @@ def test_paged_pallas_on_card_matches_cpu(card):
 
 
 def test_paged_tile_over_a_cuda_block_raises(card):
-    """In-kernel paging on the card runs each lane tile as one CUDA block: a
-    258-lane tile raises TileError naming MAX_CTA at construction."""
+    """In-kernel paging on the card runs each lane tile (one allocation
+    segment) as CUDA blocks that wait for each other at its barrier: a tile
+    of more 96-lane blocks than the card holds at once raises TileError
+    naming the numbers at construction; JAX's default tile (3,072 lanes,
+    32 blocks) fits."""
     from raft_tpu_torch.ops.pallas_round import TileError
 
-    shape = Shape(n_lanes=516, max_peers=3, log_window=16, max_msg_entries=2,
-                  max_inflight=2, max_read_index=2, pool_pages=516 * 3 + 8 + 2)
-    with pytest.raises(TileError, match="MAX_CTA=256"):
-        FusedCluster(172, 3, shape=shape, engine="pallas", tile_lanes=258, paged=True,
+    def shape(n):
+        return Shape(n_lanes=n, max_peers=3, log_window=16, max_msg_entries=2,
+                     max_inflight=2, max_read_index=2, page_window=8, page_entries=4,
+                     pool_pages=8192)
+
+    c = FusedCluster(2048, 3, shape=shape(6144), engine="pallas", paged=True,
                      paged_inkernel=True)
+    assert c._pallas_tile == 3072 and c._segments is not None
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    blocks = 8 * sms  # over any occupancy of a 96-lane block
+    with pytest.raises(TileError, match="this card holds at once"):
+        FusedCluster(blocks * 32, 3, shape=shape(blocks * 96), engine="pallas",
+                     tile_lanes=blocks * 96, paged=True, paged_inkernel=True)
+
+
+def test_multi_block_segments_equal_plain(card):
+    """Allocation segments of 2, 32 and 64 CUDA blocks on a grid of 2,048
+    blocks, more than the card holds at once, against round_kernel_ref
+    (chip_smoke's round_kernel_paged_segments)."""
+    from chip_smoke import check_round_kernel_segments
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    before = rc.KERNELS["round_kernel_paged"].launches
+    check_round_kernel_segments(card)
+    assert rc.KERNELS["round_kernel_paged"].launches > before
+
+
+def test_chaos_paged_round_kernel_equals_plain(card):
+    """The chaos builds with paging (slim and diet) against
+    round_kernel_ref(paged=, chaos=) over two-block segments: every carry,
+    partials, PagedLog and probe leaf (chip_smoke's
+    round_kernel_chaos_paged)."""
+    from chip_smoke import check_round_kernel_chaos_paged
+    from raft_tpu_torch.ops import round_cuda as rc
+
+    before = {name: q.launches for name, q in rc.KERNELS.items()}
+    check_round_kernel_chaos_paged(card)
+    for name in ("round_kernel_chaos_paged", "round_kernel_chaos_paged_diet"):
+        assert rc.KERNELS[name].launches > before[name]
 
 
 @pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])

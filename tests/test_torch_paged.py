@@ -245,32 +245,39 @@ _jax_tail = jax.jit(jpg._resident_tail)
 
 
 def _per_segment(moved, a, b):
-    """a where its allocation segment moved, else b (leaves split over SEGS
-    runs of their leading dimension)."""
+    """a where its allocation segment moved, else b (leaves split over
+    len(moved) runs of their leading dimension)."""
     a, b = np.asarray(a), np.asarray(b)
-    sel = np.repeat(moved, a.shape[0] // SEGS).reshape((-1,) + (1,) * (a.ndim - 1))
+    sel = np.repeat(moved, a.shape[0] // len(moved)).reshape((-1,) + (1,) * (a.ndim - 1))
     return jax.numpy.asarray(np.where(sel, a, b))
 
 
-def _jax_inkernel_launch(c, kc: int):
-    """One launch of JAX's in-kernel paging megakernel over c's carry, from
-    JAX's functions in the kernel's order."""
-    st, pg = jpg.page_in_host(c.state, c.paged, SEGS)
+def _jax_inkernel_launch(c, kc: int, segs: int = SEGS, ops=None, **run):
+    """One launch of JAX's in-kernel paging megakernel over c's carry at
+    `segs` allocation segments, from JAX's functions in the kernel's
+    order: `ops` in its first round (none by default), `run` over RUN's
+    round options, and c's chaos plane, if it has one, around each
+    round."""
+    st, pg = jpg.page_in_host(c.state, c.paged, segs)
     last_pre = np.asarray(st.last).astype(np.int32)
     snap_pre = np.asarray(st.snap_index).astype(np.int32)
-    fb, met = c.fab, c.metrics
-    for _ in range(kc):
-        st, fb, met = _jax_round(st, fb, c._no_ops, c.mute, metrics=met)
+    fb, met, ch = c.fab, c.metrics, c.chaos
+    for k in range(kc):
+        o = ops if ops is not None and k == 0 else c._no_ops
+        out = _jax_round(st, fb, o, c.mute, metrics=met, chaos=ch, **run)
+        st, fb, met = out[:3]
+        if ch is not None:
+            ch = out[3]
     moved = ((np.asarray(st.last).astype(np.int32) != last_pre)
-             | (np.asarray(st.snap_index).astype(np.int32) != snap_pre)).reshape(SEGS, -1).any(1)
+             | (np.asarray(st.snap_index).astype(np.int32) != snap_pre)).reshape(segs, -1).any(1)
     if c.fab.rep.ent_term.shape[-1] > pg.w_res:
         moved[:] = True
-    full_st, full_pg = jpg.page_out_host(st, pg, SEGS)
+    full_st, full_pg = jpg.page_out_host(st, pg, segs)
     skip_st = _jax_tail(st, pg)
     skip_pg = dataclasses.replace(pg, skipped=pg.skipped + 1)
     c.state = jax.tree.map(functools.partial(_per_segment, moved), full_st, skip_st)
     c.paged = jax.tree.map(functools.partial(_per_segment, moved), full_pg, skip_pg)
-    c.fab, c.metrics = fb, met
+    c.fab, c.metrics, c.chaos = fb, met, ch
 
 
 @functools.cache
@@ -371,19 +378,64 @@ def test_pallas_inkernel_pool_must_split_over_tiles():
                           n_rounds=1, paged=bad, paged_inkernel=True)
 
 
+# the fault test's cluster: 2,048 groups; a pool of 512 pages is 256 a
+# 3,072-lane segment (JAX's default tile) and would be 8 a 96-lane one;
+# the first HOT groups (96 lanes) propose, the rest stay shallow
+FAULT_GROUPS = 2048
+FAULT_POOL = 512
+HOT = 32
+
+
+def test_default_inkernel_tile_and_segments_match_jax():
+    """In-kernel paging at JAX's default tile: a default-constructed pallas
+    cluster at 2,048 groups takes JAX's tile (default_tile: 3,072 lanes)
+    and allocation segments (2), and after K = 1 launches (every group
+    campaigns, then the first 32 groups' leaders propose two entries a
+    round, compaction lag 12) its carry, PagedLog included, equals JAX's
+    leaf for leaf. The hot groups need more pages than a 96-lane segment's
+    8-page sub-pool holds, and their 3,072-lane segment holds them: no
+    lane is exhausted in either package."""
+    n = FAULT_GROUPS * V
+    js, ts = _shapes(FAULT_POOL, n=n, page_window=8, page_entries=4)
+    with pytest.MonkeyPatch.context() as mp:
+        _env(mp, paged_inkernel=1, engine="pallas")
+        jc = jfused.FusedCluster(FAULT_GROUPS, V, seed=3, shape=js)
+    tc = tfused.FusedCluster(FAULT_GROUPS, V, seed=3, shape=ts, device="cpu", engine="pallas",
+                             paged=True, paged_inkernel=True)
+    assert (tc._pallas_tile, tc._paged_segs) == (jc._pallas_tile, jc._paged_segs) == (3072, 2)
+    _assert_carry(_carry(jc), tc, "constructed")
+    run = dict(auto_propose=False, auto_compact_lag=LAG)
+    plan = ([dict(hup={g * V: True for g in range(FAULT_GROUPS)})] + [None] * 2
+            + [dict(prop_n={g * V: 2 for g in range(HOT)}, prop_bytes=3)] * 9)
+    for kw in plan:
+        _jax_inkernel_launch(jc, 1, jc._paged_segs, ops=jc.ops(**kw) if kw else None, **run)
+        tc.run(1, ops=tc.ops(**kw) if kw else None, **run)
+    _assert_carry(_carry(jc), tc, "after the launches")
+    hot_pages = int((tc.paged.pt[: HOT * V].to(torch.int32) > 0).sum())
+    assert hot_pages > FAULT_POOL // (n // 96) - 1
+    for bits in (np.asarray(jc.state.error_bits), tc.state.error_bits.numpy()):
+        assert not (bits & tst.ERR_PAGE_EXHAUSTED).any()
+    assert int(tc.paged.exhausted.sum()) == 0
+
+
 def test_paged_tile_is_one_cuda_block():
-    """Under in-kernel paging the default tile is the engine's CUDA block,
-    and a tile the kernel cannot run as one block raises, naming the
-    limit."""
+    """Under in-kernel paging the default tile is JAX's default_tile, an
+    allocation segment of several CUDA blocks of the engine's 96 lanes;
+    a tile the kernel cannot run so raises TileError naming the numbers:
+    one that is not a whole number of CUDA blocks, a block over MAX_SMEM,
+    and a segment of more blocks than the card holds at once."""
     shape = Shape(n_lanes=98_304, **SHAPE)
-    assert plr.paged_tile(shape) == 96
-    plr.check_paged_block(shape, 96)
-    with pytest.raises(plr.TileError, match="MAX_CTA=256"):
-        plr.check_paged_block(shape, 258)
+    assert plr.default_tile(98_304, V) == 3072
+    assert plr.check_paged_block(shape, 3072) == plr.paged_cta(shape, 3072) == 96
+    assert plr.check_paged_block(shape, 3072, resident=32) == 96
+    with pytest.raises(plr.TileError, match="32 CUDA blocks of 96 lanes, over the 31"):
+        plr.check_paged_block(shape, 3072, resident=31)
+    with pytest.raises(plr.TileError, match="not a multiple of the CUDA block of 90 lanes"):
+        plr.check_paged_block(shape, 3072, 90)
     wide = Shape(n_lanes=8 * 240, max_peers=8, log_window=64, max_msg_entries=8,
                  max_inflight=8, max_read_index=8)
     with pytest.raises(plr.TileError, match="MAX_SMEM"):
-        plr.check_paged_block(wide, 240)
+        plr.check_paged_block(wide, 240, 240)
 
 
 # -- rebase, adopt_state and the blocked scheduler -------------------------------------------

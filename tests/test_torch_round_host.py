@@ -8,14 +8,18 @@ K = 1 and 3 rounds per launch; its diet-v2 build (-DRAFT_DIET=1) on
 the packed carry, through a carry fast-forwarded to just under 65,535 so
 that rounds overflow the packed uint16 columns and the boundary's clamps
 and ERR_DIET_OVERFLOW bits show; and its paged builds (-DRAFT_PAGED=1,
-slim and diet) paging in the kernel over two-segment pools, one that
-holds every lane and one that exhausts, through launches that reallocate
-and launches that skip the allocator; and its chaos builds
-(-DRAFT_CHAOS=1, slim and diet) under drops, duplicates, an asymmetric
-partition, tick skew, a crash window and an instant restart inside a
-launch, and a heal round armed inside one. Exact equality on every carry
-leaf, partials row, PagedLog leaf and chaos probe column. Skips without a
-C++ compiler.
+slim and diet) paging in the kernel over allocation segments of 1, 2 and
+4 CUDA blocks, with pools that hold every lane and pools that exhaust,
+through launches that reallocate and launches that skip the allocator
+(the host build runs a segment's blocks through their rounds, then the
+segment's page-out, as the kernel's segment barrier orders them); its
+chaos builds (-DRAFT_CHAOS=1, slim and diet) under drops, duplicates, an
+asymmetric partition, tick skew, a crash window and an instant restart
+inside a launch, and a heal round armed inside one; and the chaos builds
+with paging (-DRAFT_CHAOS=1 -DRAFT_PAGED=1, slim and diet) under the same
+faults over two-block segments. Exact equality on every carry leaf,
+partials row, PagedLog leaf and chaos probe column. Skips without a C++
+compiler.
 """
 
 from __future__ import annotations
@@ -103,7 +107,8 @@ def host_lib(tmp_path_factory):
                 for k in dict.fromkeys([(cv, cw, False, None, False) for cv, _, cw in CASES]
                                        + [(cv, cw, True, None, False) for cv, _, cw in DIET_CASES]
                                        + [(3, PAGED_WEFR, d, PAGED_PLAN, False) for d in (False, True)]
-                                       + [(*CHAOS_CASE, d, None, True) for d in (False, True)]):
+                                       + [(*CHAOS_CASE, d, None, True) for d in (False, True)]
+                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, True) for d in (False, True)]):
                     start(k)
             if key not in procs:
                 start(key)
@@ -139,10 +144,11 @@ def _outputs(res):
         out += [("samp_index", samp[0].numpy()), ("samp_round", samp[1].numpy())]
     if parts is not None:
         out += [("partials", parts.numpy())]
-    if len(res) > 4 and isinstance(res[4], tuple):  # the probe columns of a chaos launch
-        out += [("chaos." + n, x.numpy()) for n, x in zip(rc.chmod.PROBES, res[4])]
-    elif len(res) > 4:  # the PagedLog of a paged launch
-        out += [("paged." + n, x) for n, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(res[4]))]
+    for extra in res[4:]:
+        if isinstance(extra, tuple):  # the probe columns of a chaos launch
+            out += [("chaos." + n, x.numpy()) for n, x in zip(rc.chmod.PROBES, extra)]
+        else:  # the PagedLog of a paged launch
+            out += [("paged." + n, x) for n, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(extra))]
     return out
 
 
@@ -256,16 +262,24 @@ def test_diet_lane_code_equals_plain_version(host_lib, v, cfg, wefr, near):
         assert int(c.state.last.to(torch.int32).max()) == 65535
 
 
+# (lanes a segment, lanes a CUDA block) of the paged lane tests: segments
+# of 1, 2 and 4 blocks
+SEGMENTS = {"1-block": (6, 6), "2-block": (6, 3), "4-block": (12, 3)}
+
+
+@pytest.mark.parametrize("segment", list(SEGMENTS))
 @pytest.mark.parametrize("pool", [0, 8], ids=["full_pool", "exhausting_pool"])
 @pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
-def test_paged_lane_code_equals_plain_version(host_lib, diet, pool):
-    """The paged build (in-kernel paging, two 6-lane segments) against
-    round_kernel_ref on the same resident carry and PagedLog: launches at
-    K = 1 and 3 with proposals while the logs outrun the resident window
-    (the allocator runs: pages written, and with the 8-page pool lanes
-    clamped with ERR_PAGE_EXHAUSTED), then quiet launches (no tick, no
-    proposals) until the allocator is skipped on both sides."""
+def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
+    """The paged build (in-kernel paging, allocation segments of 1, 2 and
+    4 CUDA blocks) against round_kernel_ref on the same resident carry and
+    PagedLog: launches at K = 1 and 3 with proposals while the logs outrun
+    the resident window (the allocator runs: pages written, and with the
+    8-page pool lanes clamped with ERR_PAGE_EXHAUSTED), then quiet
+    launches (no tick, no proposals) until the allocator is skipped on
+    both sides."""
     v = 3
+    tile, cta = SEGMENTS[segment]
     lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN)
     geo = (ctypes.c_longlong * 4)()
     lib.raft_round_paged(geo)
@@ -273,11 +287,11 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool):
     d = dict(zip("vwefr", (v, *PAGED_WEFR)))
     assert lib.raft_round_smem() == rc.smem_bytes(d, 2 * v, paged=True) > rc.smem_bytes(d, 2 * v)
     n = G * v
-    # the 8-page pool: 4 pages a segment, under what the deep lanes need
+    # the 8-page pool: 4 or 8 pages a segment, under what the deep lanes need
     shape = dataclasses.replace(_shape(n, v, PAGED_WEFR), pool_pages=pool)
     c = tfused.FusedCluster(G, v, seed=7, shape=shape, device="cpu", diet=diet,
-                            engine="pallas", tile_lanes=2 * v, paged=True, paged_inkernel=True)
-    assert c._paged_segs == 2 and c.paged.pool_term.shape[0] == (pool or n * 3 + 8)
+                            engine="pallas", tile_lanes=tile, paged=True, paged_inkernel=True)
+    assert c._paged_segs == n // tile and c.paged.pool_term.shape[0] == (pool or n * 3 + 8)
     c.run(12, auto_propose=True, auto_compact_lag=12)
     skipped0 = int(c.paged.skipped.sum())
     for r in range(14):
@@ -286,14 +300,16 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool):
         m = c.metrics
         args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
         kc = 1 + 2 * (r % 2)
-        kw = dict(v=v, kc=kc, cta=2 * v, apply_ops=not quiet, ops_round0_only=True,
-                  do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged)
+        kw = dict(v=v, kc=kc, cta=cta, apply_ops=not quiet, ops_round0_only=True,
+                  do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged,
+                  seg_lanes=tile)
         want = plr.round_kernel_ref(*args, **kw)
         ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        assert dims[8:10] == [c.paged.pool_term.shape[0] * tile // n, tile // cta]
         arr, nptr, cdims = rc.as_c_args(ptrs, dims)
         assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
-        for (name, a), (_, b) in zip(_outputs(want), _outputs(got)):
-            assert a.dtype == b.dtype and np.array_equal(a, b), (diet, pool, r, name)
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (diet, pool, segment, r, name)
         c.state, c.fab, c.paged = want[0], want[1], want[4]
         c.metrics = plr.fold_partials(m, want[2], want[3], kc)
     stats = pgmod.paged_stats(c.paged)
@@ -352,3 +368,66 @@ def test_chaos_lane_code_equals_plain_version(host_lib, diet):
     cols = c.chaos_columns()
     assert cols["round"] == r0 + 16 and 0 < cols["n_reelected"] <= G
     assert (cols["base_committed"] > 0).any() and (cols["recommit_round"] != NEVER).any()
+
+
+@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
+    """The chaos build with paging (round_kernel_chaos_paged) against
+    round_kernel_ref(paged=, chaos=) on the same resident carry, PagedLog
+    and ChaosState, over two 6-lane segments of two 3-lane blocks: the
+    chaos case's faults (drops, duplicates, an asymmetric partition, tick
+    skew, a crash window and an instant restart inside launches, the heal
+    round armed inside one) with proposals while the logs outrun the
+    resident window, metrics on and off, then quiet launches until the
+    allocator is skipped; every carry leaf, partials row, PagedLog leaf
+    and probe column."""
+    v = 3
+    lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN, True)
+    geo = (ctypes.c_longlong * 4)()
+    lib.raft_round_paged(geo)
+    assert tuple(geo) == (1, *PAGED_PLAN) and lib.raft_round_chaos() == 1
+    d = dict(zip("vwefr", (v, *PAGED_WEFR)))
+    assert lib.raft_round_smem() == rc.smem_bytes(d, 2 * v, paged=True, chaos=True)
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v, PAGED_WEFR), device="cpu",
+                            diet=diet, engine="pallas", tile_lanes=2 * v, paged=True,
+                            paged_inkernel=True, chaos=True)
+    c.run(12, auto_propose=True, auto_compact_lag=12)
+    r0 = int(c.chaos.round)
+    edge = np.where((np.arange(n) < 2 * v)[:, None], probability(0.2), 0).repeat(v, 1)
+    send, recv = np.ones(n, np.int32), np.ones(n, np.int32)
+    send[2 * v], recv[2 * v] = 3, 2
+    crash, restart = np.full(n, NEVER, np.int32), np.full(n, NEVER, np.int32)
+    crash[1], restart[1] = r0 + 2, r0 + 5
+    crash[3 * v], restart[3 * v] = r0 + 4, r0 + 4
+    c.set_chaos(drop_num=edge.astype(np.int32), dup_num=edge.astype(np.int32),
+                tick_skew_num=np.full(n, probability(0.3)), part_send=send, part_recv=recv,
+                crash_at=crash, restart_at=restart, heal_round=r0 + 7,
+                reelect_round=np.full(n, NEVER), recommit_round=np.full(n, NEVER))
+    skipped0 = int(c.paged.skipped.sum())
+    for r in range(12):
+        quiet = r >= 8
+        metrics = r % 3 != 2
+        ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=5) if r % 4 == 0 else c._no_ops
+        m = c.metrics
+        samp = (m.samp_index, m.samp_round) if metrics else None
+        args = (c.state, c.fab, ops, c.mute, samp, m.round_ctr if metrics else None)
+        kc = 1 + 2 * (r % 2)
+        kw = dict(v=v, kc=kc, cta=v, apply_ops=not quiet, ops_round0_only=True,
+                  do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged,
+                  chaos=c.chaos, seg_lanes=2 * v)
+        want = plr.round_kernel_ref(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (diet, r, name)
+        c.state, c.fab, c.paged = want[0], want[1], want[4]
+        if metrics:
+            c.metrics = plr.fold_partials(m, want[2], want[3], kc)
+        c.chaos = plr.fold_chaos(c.chaos, want[5], want[3], kc, metrics)
+    stats = pgmod.paged_stats(c.paged)
+    assert stats["paged_pages_dirty"] > 0 and stats["paged_alloc_skipped"] > skipped0
+    cols = c.chaos_columns()
+    assert cols["round"] == r0 + 24 and 0 < cols["n_reelected"] <= G
+    assert (cols["recommit_round"] != NEVER).any()
