@@ -45,7 +45,9 @@ from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.ops import pallas_round as tplr
 from raft_tpu_torch.scheduler import BlockedFusedCluster
-from tests.test_torch_state import assert_same_leaves, jax_leaves
+from tests.test_torch_state import assert_same_leaves, jax_leaves, release_memory  # noqa: F401
+
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
 G = 4
 STEP = 3  # rounds per JAX dispatch: one compiled program per configuration

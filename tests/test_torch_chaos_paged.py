@@ -29,6 +29,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from raft_tpu.chaos import schedule as jsched
@@ -44,7 +45,9 @@ from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.scheduler import BlockedFusedCluster
 from tests.test_torch_paged import KNOBS, _jax_inkernel_launch, _jax_round
-from tests.test_torch_state import assert_same_leaves, jax_leaves
+from tests.test_torch_state import assert_same_leaves, jax_leaves, release_memory  # noqa: F401
+
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
 V = 3
 G = 4

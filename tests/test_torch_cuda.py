@@ -20,6 +20,8 @@ from raft_tpu_torch.ops import quorum as tq
 from raft_tpu_torch.ops import quorum_cuda as tqc
 from raft_tpu_torch.ops.fused import FusedCluster
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 pytestmark = pytest.mark.cuda
 
 

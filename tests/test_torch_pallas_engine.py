@@ -24,6 +24,8 @@ from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.scheduler import BlockedFusedCluster
 from raft_tpu_torch.state import init_state, slim_state
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 V = 3
 G = 4
 N = G * V

@@ -26,7 +26,9 @@ from raft_tpu_torch.metrics import device as tmet
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.ops import pallas_round as tplr
 from raft_tpu_torch.state import RaftState
-from tests.test_torch_state import assert_same_leaves, jax_leaves
+from tests.test_torch_state import assert_same_leaves, jax_leaves, release_memory  # noqa: F401
+
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
 V = 3
 G = 4

@@ -19,6 +19,8 @@ from raft_tpu_torch.ops import onehot as toh
 from raft_tpu_torch.ops import quorum as tq
 from raft_tpu_torch.ops import quorum_cuda as tqc
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 N = 1100  # two 1024-lane Pallas tiles, ragged
 
 # one compiled program per reference function and shape, not one per

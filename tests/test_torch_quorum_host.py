@@ -21,6 +21,8 @@ import torch
 from raft_tpu_torch import build
 from raft_tpu_torch.ops import quorum as tq
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 NS = [1, 2, 3, 4, 5, 7, 8, 1023, 4097]
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _LIB = {}  # one build a process, shared by every module that asks

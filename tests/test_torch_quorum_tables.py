@@ -22,6 +22,8 @@ from raft_tpu_torch.ops import quorum as tq
 from tests import test_quorum_datadriven as dd
 from tests.test_torch_quorum_host import committed_host, host_library, joint_host
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 INF = tq.COMMITTED_INF
 BACKENDS = ["plain", "host"]
 

@@ -26,8 +26,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -41,6 +43,8 @@ from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED, is_packed
+
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
 G = 4
 RUN = dict(auto_propose=True, auto_compact_lag=4)
@@ -75,16 +79,32 @@ PAGED_PLAN = (8, 4, 4)
 CHAOS_CASE = (3, BASE)
 
 
+def _await_build(so, deadline: float = 600.0):
+    """Wait for another process's build of `so` (or its .err log)."""
+    err = so.with_suffix(".err")
+    end = time.monotonic() + deadline
+    while not so.exists():
+        assert not err.exists(), err.read_text()
+        assert time.monotonic() < end, f"no build of {so.name} after {deadline} s"
+        time.sleep(0.05)
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """(v, (w, e, f, r), diet) -> csrc/round.cu compiled as plain C++ for
     that Shape, blocks of up to 32 lanes and carry layout. The first
-    request starts one compiler per library of CASES and DIET_CASES, all at
-    once; each library is loaded when it is first asked for."""
+    request starts one compiler per library of the module's tests, all at
+    once; each library is loaded when it is first asked for. Under xdist
+    the session's workers share one build directory, and each library is
+    compiled by the first worker that claims it."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler for the host build of csrc/round.cu")
-    root = tmp_path_factory.mktemp("round_host")
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    root = root / "round_host"
+    root.mkdir(exist_ok=True)
     procs = {}
     libs = {}
 
@@ -93,9 +113,15 @@ def host_lib(tmp_path_factory):
         d = dict(zip("vwefr", (v, *wefr)))
         t = rc.target(d, 2 * v, diet, plan, chaos)
         so = root / f"{t.key}.so"
+        try:
+            os.close(os.open(so.with_suffix(".claim"), os.O_CREAT | os.O_EXCL))
+        except FileExistsError:  # built, or being built, by another worker
+            procs[key] = (None, so)
+            return
+        tmp = so.with_suffix(".tmp")
         proc = subprocess.Popen(
             [cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-             *t.flags, "-x", "c++", str(build.CSRC / "round.cu"), "-o", str(so)],
+             *t.flags, "-x", "c++", str(build.CSRC / "round.cu"), "-o", str(tmp)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         procs[key] = (proc, so)
@@ -113,8 +139,14 @@ def host_lib(tmp_path_factory):
             if key not in procs:
                 start(key)
             proc, so = procs[key]
-            log, _ = proc.communicate()
-            assert proc.returncode == 0, log
+            if proc is None:
+                _await_build(so)
+            elif proc.returncode is None:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    so.with_suffix(".err").write_text(log)
+                assert proc.returncode == 0, log
+                os.replace(so.with_suffix(".tmp"), so)
             lib = ctypes.CDLL(str(so))
             lib.raft_round_host.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                             ctypes.c_int, ctypes.c_int]
@@ -130,9 +162,13 @@ def host_lib(tmp_path_factory):
         return libs[key]
 
     yield get
-    for proc, _ in procs.values():
-        if proc.returncode is None:
-            proc.communicate()
+    for proc, so in procs.values():
+        if proc is not None and proc.returncode is None:
+            log, _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(so.with_suffix(".tmp"), so)
+            else:
+                so.with_suffix(".err").write_text(log)
 
 
 def _outputs(res):

@@ -10,7 +10,10 @@ without one.
 from __future__ import annotations
 
 import ast
+import ctypes
+import ctypes.util
 import dataclasses
+import gc
 import pathlib
 
 import jax
@@ -25,7 +28,25 @@ from raft_tpu_torch import state as tst
 from raft_tpu_torch.config import Shape, resolve_device
 from raft_tpu_torch.ops.fused import PLANES_NOT_PORTED, FusedCluster
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+_LIBC = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_memory():
+    """After a module's tests: drop JAX's compiled programs and trace
+    caches, collect, and hand the C heap's free pages back to the system
+    (glibc's malloc_trim). A test process otherwise keeps every program it
+    compiled, gigabytes after a few of the suite's files, while the xdist
+    workers share the machine's memory. Autouse in every module that
+    imports it."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+    if hasattr(_LIBC, "malloc_trim"):
+        _LIBC.malloc_trim(0)
 
 
 def jax_leaves(tree) -> list[np.ndarray]:
