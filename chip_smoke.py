@@ -156,7 +156,9 @@ Phases:
            beside the unpaged chaos run of the same layout: one digest, one
            probe snapshot, the same error lanes, no page exhausted;
            round_kernel_chaos_paged(_diet) launches = what the segments'
-           chunks launch; round_ms, pool in use, peak memory; the builds
+           chunks launch; round_ms, pool in use, each segment's peak
+           pages in use (segment_pages_peak against segment_pool_rows,
+           sampled after every schedule segment), peak memory; the builds
            timed at block 0 (round_kernel_chaos_paged_timing,
            round_kernel_chaos_paged_diet_timing)
 
@@ -1277,6 +1279,13 @@ def segment_blocks(b) -> int | None:
                                           paged=True)
 
 
+def segment_pages(b) -> torch.Tensor:
+    """Pages in use in each allocation segment of a FusedCluster paging in
+    the kernel: its page table's mapped entries, tile by tile, on its
+    device (int64 [segments])."""
+    return (b.paged.pt.to(torch.int32) > 0).view(b._paged_segs, -1).sum(1)
+
+
 def check_main_paged(dev):
     """main_pallas_paged: the paged main path in-kernel (the default tile,
     3,072 lanes: 16 segments of 32 CUDA blocks a block), in-kernel at
@@ -1587,6 +1596,9 @@ def run_main_chaos(dev, phase: str = "main_pallas_chaos", block_groups: int = MA
     # at the first: at this cell's 16-entry window the scenario overflows a
     # few followers' windows, in the JAX package too, PERF.md PR 7)
     errors = {}
+    # paged: each allocation segment's pages in use, the most seen at the
+    # end of any schedule segment (the pool's headroom; kept on the card)
+    seg_peak = {}
     run_segment = c.run
 
     def run_checked(rounds, **kw):
@@ -1597,6 +1609,9 @@ def run_main_chaos(dev, phase: str = "main_pallas_chaos", block_groups: int = MA
             bits = b.state.error_bits.cpu().numpy()
             for lane in np.nonzero(bits)[0]:
                 errors.setdefault(i * c.lanes_per_block + int(lane), int(bits[lane]))
+            if pool is not None:
+                used = segment_pages(b)
+                seg_peak[i] = used if i not in seg_peak else torch.maximum(seg_peak[i], used)
 
     c.run = run_checked
     runner = ChaosRunner(c, sched, tick_budget=CHAOS_BUDGET, check_invariants=False)
@@ -1626,8 +1641,13 @@ def run_main_chaos(dev, phase: str = "main_pallas_chaos", block_groups: int = MA
     b0 = c.blocks[0]
     layout = {}
     if pool is not None:
+        peaks = torch.stack([seg_peak[i] for i in range(c.k)]).cpu()
+        rows = pool // b0._paged_segs
         layout = dict(pool_pages=pool, segs_per_block=b0._paged_segs,
                       tile_lanes=b0._pallas_tile, blocks_per_segment=segment_blocks(b0),
+                      segment_pool_rows=rows, segment_pages_peak=int(peaks.max()),
+                      segment_pages_peak_mean=float(peaks.double().mean()),
+                      segment_peak_share=int(peaks.max()) / rows,
                       **(c.paged_stats() or {}))
     row = dict(
         **engine, **layout, groups=MAIN_GROUPS, voters=VOTERS, blocks=c.k,

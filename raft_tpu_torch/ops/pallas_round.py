@@ -365,8 +365,8 @@ def pallas_rounds(
     plus one remainder launch when K does not divide n_rounds. Same
     contract and trajectory as ops/fused.py fused_rounds (module doc).
     segments: the segment barrier's scratch of in-kernel paging on the
-    card when a tile spans CUDA blocks (FusedCluster keeps one; default a
-    fresh one a launch). Returns (state, fab[, metrics][, chaos][,
+    card, required there when a tile spans CUDA blocks (FusedCluster keeps
+    one). Returns (state, fab[, metrics][, chaos][,
     paged])."""
     validate_round_plan(rounds_per_call)
     state, fab = fmod.carry_boundary(state)[1](state, fab)

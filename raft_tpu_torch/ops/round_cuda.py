@@ -334,15 +334,7 @@ def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
     """Lanes per CUDA block: the largest multiple of v that divides the tile
     and is at most `target` (else the smallest such multiple), at most
     MAX_CTA and, given the Shape `dims`, within MAX_SMEM (of the chaos
-    build with chaos, of the paged build with paged) where one is. Cached:
-    the engines ask once a dispatch."""
-    key = None if dims is None else tuple(dims[k] for k in "vwefr")
-    return _cta_lanes(tile_lanes, v, key, target, chaos, paged)
-
-
-@functools.cache
-def _cta_lanes(tile_lanes: int, v: int, key, target: int, chaos: bool, paged: bool) -> int:
-    dims = None if key is None else dict(zip("vwefr", key))
+    build with chaos, of the paged build with paged) where one is."""
     cands = [c for c in range(v, min(tile_lanes, MAX_CTA) + 1, v) if tile_lanes % c == 0]
     if not cands:
         raise ValueError(f"no CUDA block of <= {MAX_CTA} lanes covers whole groups of "
@@ -403,8 +395,9 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
     and, given `paged`, the PagedLog out, given `chaos`, the probe columns
     out. seg_lanes: the paged build's allocation segment (default one
-    CUDA block); segments: the barrier's scratch when a segment spans
-    blocks (default a fresh one)."""
+    CUDA block); segments: the barrier's scratch (`Segments`), required
+    when a segment spans blocks: its owner (the cluster) keeps it across
+    launches, so that a launch allocates and zeroes none."""
     _check_layout()
     n = state.term.shape[0]
     d = dims_of(state, fab, v, paged)
@@ -444,7 +437,9 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
             raise ValueError(f"pool_pages={p} does not split over {n_segs} allocation segments")
         pool_rows = p // n_segs
         if bps > 1:
-            segments = segments or Segments(n // cta, dev)
+            if segments is None:
+                raise ValueError(f"a segment of {bps} CUDA blocks needs the barrier's scratch: "
+                                 f"pass segments=Segments({n // cta}, device), kept by its owner")
             seg_words = segments.words
             if seg_words.device != dev or seg_words.dtype != torch.int64 or (
                     seg_words.shape[0] < 1 + n // cta):
@@ -536,7 +531,7 @@ def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
     metrics round counter ([] int32 tensor); paged: the PagedLog of a paged
     carry (the state's log leaves its resident tails): each allocation
     segment of seg_lanes lanes (default cta: one CUDA block; `segments`
-    the barrier's scratch when it spans blocks, default a fresh one) pages
+    the barrier's scratch, required when it spans blocks) pages
     in, runs the rounds and pages out over its own sub-pool; chaos: the
     ChaosState (chaos/device.py) whose faults the rounds apply, from its
     round, heal_round and seed. Returns (state, fab, sampler, partials

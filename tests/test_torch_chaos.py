@@ -406,14 +406,16 @@ def test_crash_freezes_lane_and_preserves_hardstate():
 
 
 def test_chaos_with_paging_is_refused_by_name():
-    """Chaos with paging is no longer refused: it constructs and runs on
-    both engines in both paging modes. What is still refused by name: the
-    chaos calls of a cluster without the plane, and a runner over one."""
+    """The name is historical: chaos with paging is no longer refused, and
+    this checks that it constructs and runs on both engines in both paging
+    modes. What is still refused by name: the chaos calls of a cluster
+    without the plane, and a runner over one."""
     shape = Shape(**_shape(3), page_window=4, page_entries=2)
     for kw in (dict(), dict(paged_inkernel=True), dict(engine="pallas", paged_inkernel=True)):
         c = tfused.FusedCluster(G, 3, shape=shape, device="cpu", chaos=True, paged=True, **kw)
         c.run(3, **RUN)
-        assert c.paged is not None and int(c.chaos.round) == 3
+        assert c.paged is not None and int(c.chaos.round) == 3, (
+            f"chaos with paging {kw} must construct and run 3 rounds")
     c = tfused.FusedCluster(G, 3, shape=Shape(**_shape(3)), device="cpu")
     with pytest.raises(RuntimeError, match="chaos plane is off"):
         c.set_chaos(heal_round=0)

@@ -19,8 +19,13 @@ JAX's flat run, one digest).
 As in tests/test_torch_paged.py, the JAX references of the pallas modes
 are composed from JAX's own functions in its kernel's order (one-round
 fused_rounds dispatches with the chaos carry between page_in_host and
-page_out_host), since JAX's interpret mode takes minutes at K > 1; JAX's
-own eager cluster runs the eager modes.
+page_out_host), since JAX's interpret mode takes minutes at K > 1; so is
+paging at the dispatch boundary (page_in_host, one-round dispatches,
+page_out_host) and paging around every round (a one-round, one-segment
+in-kernel launch a round), each leaf for leaf what JAX's eager cluster
+computes in that mode: every mode then runs the one-round program of its
+carry layout instead of compiling a dispatch of its own, and so does each
+block of JAX's BlockedFusedCluster in the two-block case.
 """
 
 from __future__ import annotations
@@ -138,9 +143,10 @@ def _assert_carry(jc, tc, what: str):
 
 
 def _jax_cluster(mode: str, diet: bool = False, segs: int = 1, pool: int = 0, g: int = G):
-    """A JAX chaos + paged cluster of seed 7: eager ("xla", "boundary"),
-    paging around every round ("xla_inkernel"), or pinned to the pallas
-    engine's in-kernel segmentation ("pallas_inkernel", segs tiles)."""
+    """A JAX chaos + paged cluster of seed 7: paging at the dispatch
+    boundary ("xla", "boundary"), around every round ("xla_inkernel"), or
+    pinned to the pallas engine's in-kernel segmentation
+    ("pallas_inkernel", segs tiles)."""
     on, kw = dict(diet=int(diet)), {}
     if mode == "xla_inkernel":
         on["paged_inkernel"] = 1
@@ -155,9 +161,17 @@ def _jax_cluster(mode: str, diet: bool = False, segs: int = 1, pool: int = 0, g:
 
 
 def _jax_dispatch(mode: str, segs: int, k: int):
+    """One STEP-round dispatch of the JAX reference of `mode`, composed
+    from JAX's functions: each leaf for leaf what JAX's eager cluster.run
+    computes in the eager modes ("xla", "boundary": paging at the dispatch
+    boundary; "xla_inkernel": around every round, one segment's launch a
+    round), so that every mode runs the one-round program of its carry
+    layout instead of compiling a dispatch of its own."""
     if mode == "pallas_inkernel":
         return lambda c: [_jax_inkernel_launch(c, kc, segs) for kc in _launches(k)]
-    return _jax_boundary_dispatch if mode == "boundary" else None
+    if mode == "xla_inkernel":
+        return lambda c: [_jax_inkernel_launch(c, 1, 1) for _ in range(STEP)]
+    return _jax_boundary_dispatch
 
 
 @functools.cache
@@ -238,13 +252,16 @@ def test_rebase_groups_under_both_planes():
 
 def test_blocked_cluster_matches_jax():
     """Two chaos + paged blocks in STEP-round chunks, the faults set in
-    global lane order: each block's carry as JAX's, the recounts summed."""
+    global lane order: each block's carry as JAX's, the recounts summed.
+    JAX's BlockedFusedCluster seeds the blocks and slices the faults; each
+    block's chunk is the composed boundary dispatch (its run, leaf for
+    leaf, through the one-round program the other references compile)."""
     kw = dict(block_groups=G, seed=5, round_chunk=STEP)
     jb = JBlocked(2 * G, V, shape=_shapes()[0], **kw)
     tb = BlockedFusedCluster(2 * G, V, shape=_shapes()[1], device="cpu", chaos=True,
                              paged=True, **kw)
-    for b in (jb, tb):
-        _drive(b)
+    _drive(jb, lambda b: [_jax_boundary_dispatch(x) for x in b.blocks])
+    _drive(tb)
     for i, (x, y) in enumerate(zip(jb.blocks, tb.blocks, strict=True)):
         _assert_carry(x, y, f"block {i}")
     assert tb.chaos_columns()["n_reelected"] == sum(

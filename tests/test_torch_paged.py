@@ -274,11 +274,15 @@ def _jax_inkernel_launch(c, kc: int, segs: int = SEGS, ops=None, **run):
              | (np.asarray(st.snap_index).astype(np.int32) != snap_pre)).reshape(segs, -1).any(1)
     if c.fab.rep.ent_term.shape[-1] > pg.w_res:
         moved[:] = True
-    full_st, full_pg = jpg.page_out_host(st, pg, segs)
-    skip_st = _jax_tail(st, pg)
-    skip_pg = dataclasses.replace(pg, skipped=pg.skipped + 1)
-    c.state = jax.tree.map(functools.partial(_per_segment, moved), full_st, skip_st)
-    c.paged = jax.tree.map(functools.partial(_per_segment, moved), full_pg, skip_pg)
+    if moved.any():
+        c.state, c.paged = jpg.page_out_host(st, pg, segs)
+    if not moved.all():  # the segments that did not move keep their pages
+        skip_st = _jax_tail(st, pg)
+        skip_pg = dataclasses.replace(pg, skipped=pg.skipped + 1)
+        if moved.any():
+            skip_st = jax.tree.map(functools.partial(_per_segment, moved), c.state, skip_st)
+            skip_pg = jax.tree.map(functools.partial(_per_segment, moved), c.paged, skip_pg)
+        c.state, c.paged = skip_st, skip_pg
     c.fab, c.metrics, c.chaos = fb, met, ch
 
 

@@ -80,13 +80,19 @@ CHAOS_CASE = (3, BASE)
 
 
 def _await_build(so, deadline: float = 600.0):
-    """Wait for another process's build of `so` (or its .err log)."""
+    """Wait for the build of `so` (or its .err log)."""
     err = so.with_suffix(".err")
     end = time.monotonic() + deadline
     while not so.exists():
         assert not err.exists(), err.read_text()
         assert time.monotonic() < end, f"no build of {so.name} after {deadline} s"
         time.sleep(0.05)
+
+
+# the compiler's shell publishes the library ($0.so), or its log as $0.err,
+# the moment the compiler ends: a worker that waits on another's build does
+# not wait for that worker to ask for the library
+_PUBLISH = 'if "$@" > "$0.log" 2>&1; then mv "$0.tmp" "$0.so"; else mv "$0.log" "$0.err"; fi'
 
 
 @pytest.fixture(scope="module")
@@ -113,18 +119,16 @@ def host_lib(tmp_path_factory):
         d = dict(zip("vwefr", (v, *wefr)))
         t = rc.target(d, 2 * v, diet, plan, chaos)
         so = root / f"{t.key}.so"
+        procs[key] = (None, so)
         try:
             os.close(os.open(so.with_suffix(".claim"), os.O_CREAT | os.O_EXCL))
         except FileExistsError:  # built, or being built, by another worker
-            procs[key] = (None, so)
             return
-        tmp = so.with_suffix(".tmp")
-        proc = subprocess.Popen(
-            [cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-             *t.flags, "-x", "c++", str(build.CSRC / "round.cu"), "-o", str(tmp)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        procs[key] = (proc, so)
+        base = str(so)[: -len(".so")]
+        procs[key] = (subprocess.Popen(
+            ["sh", "-c", _PUBLISH, base, cxx, "-std=c++17", "-O0", "-shared", "-fPIC",
+             "-Wno-unknown-pragmas", *t.flags, "-x", "c++", str(build.CSRC / "round.cu"),
+             "-o", base + ".tmp"]), so)
 
     def get(v, wefr=BASE, diet=False, plan=None, chaos=False):
         key = (v, wefr, diet, plan, chaos)
@@ -138,16 +142,8 @@ def host_lib(tmp_path_factory):
                     start(k)
             if key not in procs:
                 start(key)
-            proc, so = procs[key]
-            if proc is None:
-                _await_build(so)
-            elif proc.returncode is None:
-                log, _ = proc.communicate()
-                if proc.returncode != 0:
-                    so.with_suffix(".err").write_text(log)
-                assert proc.returncode == 0, log
-                os.replace(so.with_suffix(".tmp"), so)
-            lib = ctypes.CDLL(str(so))
+            _await_build(procs[key][1])
+            lib = ctypes.CDLL(str(procs[key][1]))
             lib.raft_round_host.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                             ctypes.c_int, ctypes.c_int]
             lib.raft_round_smem.argtypes = []
@@ -162,13 +158,9 @@ def host_lib(tmp_path_factory):
         return libs[key]
 
     yield get
-    for proc, so in procs.values():
-        if proc is not None and proc.returncode is None:
-            log, _ = proc.communicate()
-            if proc.returncode == 0:
-                os.replace(so.with_suffix(".tmp"), so)
-            else:
-                so.with_suffix(".err").write_text(log)
+    for proc, _ in procs.values():
+        if proc is not None:
+            proc.wait()
 
 
 def _outputs(res):
@@ -313,7 +305,8 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
     the resident window (the allocator runs: pages written, and with the
     8-page pool lanes clamped with ERR_PAGE_EXHAUSTED), then quiet
     launches (no tick, no proposals) until the allocator is skipped on
-    both sides."""
+    both sides. A segment of several blocks takes the barrier's scratch
+    from its caller: pack refuses it without one."""
     v = 3
     tile, cta = SEGMENTS[segment]
     lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN)
@@ -330,6 +323,7 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
     assert c._paged_segs == n // tile and c.paged.pool_term.shape[0] == (pool or n * 3 + 8)
     c.run(12, auto_propose=True, auto_compact_lag=12)
     skipped0 = int(c.paged.skipped.sum())
+    segments = rc.Segments(n // cta, "cpu") if tile > cta else None
     for r in range(14):
         quiet = r >= 8
         ops = c.ops(prop_n={i: 2 for i in range(n)}, prop_bytes=5) if r % 4 == 0 else c._no_ops
@@ -340,7 +334,10 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
                   do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged,
                   seg_lanes=tile)
         want = plr.round_kernel_ref(*args, **kw)
-        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        if segments is not None and r == 0:  # the scratch has one owner, the caller
+            with pytest.raises(ValueError, match="needs the barrier's scratch"):
+                rc.pack(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, segments=segments, **kw)
         assert dims[8:10] == [c.paged.pool_term.shape[0] * tile // n, tile // cta]
         arr, nptr, cdims = rc.as_c_args(ptrs, dims)
         assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
@@ -441,6 +438,7 @@ def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
                 crash_at=crash, restart_at=restart, heal_round=r0 + 7,
                 reelect_round=np.full(n, NEVER), recommit_round=np.full(n, NEVER))
     skipped0 = int(c.paged.skipped.sum())
+    segments = rc.Segments(n // v, "cpu")
     for r in range(12):
         quiet = r >= 8
         metrics = r % 3 != 2
@@ -453,7 +451,7 @@ def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
                   do_tick=not quiet, auto_propose=not quiet, auto_compact_lag=12, paged=c.paged,
                   chaos=c.chaos, seg_lanes=2 * v)
         want = plr.round_kernel_ref(*args, **kw)
-        ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, segments=segments, **kw)
         arr, nptr, cdims = rc.as_c_args(ptrs, dims)
         assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
         for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):

@@ -14,6 +14,7 @@ import ctypes
 import ctypes.util
 import dataclasses
 import gc
+import os
 import pathlib
 
 import jax
@@ -34,15 +35,32 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _LIBC = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6")
 
 
+# resident bytes of a test process above which release_memory clears
+RELEASE_ABOVE = 6 << 30
+
+
+def resident_bytes() -> int:
+    """This process's resident memory (Linux /proc; 0 where there is none)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
 @pytest.fixture(scope="module", autouse=True)
 def release_memory():
-    """After a module's tests: drop JAX's compiled programs and trace
-    caches, collect, and hand the C heap's free pages back to the system
-    (glibc's malloc_trim). A test process otherwise keeps every program it
-    compiled, gigabytes after a few of the suite's files, while the xdist
-    workers share the machine's memory. Autouse in every module that
-    imports it."""
+    """After a module's tests, in a process holding more than RELEASE_ABOVE
+    resident: drop JAX's compiled programs and trace caches, collect, and
+    hand the C heap's free pages back to the system (glibc's malloc_trim).
+    A test process otherwise keeps every program it compiled, gigabytes
+    after a few of the suite's files, while the xdist workers share the
+    machine's memory. Below the mark it does nothing: clearing costs
+    seconds, and the process's later JAX calls trace again. Autouse in
+    every module that imports it."""
     yield
+    if resident_bytes() <= RELEASE_ABOVE:
+        return
     jax.clear_caches()
     gc.collect()
     if hasattr(_LIBC, "malloc_trim"):
