@@ -161,6 +161,38 @@ Phases:
            sampled after every schedule segment), peak memory; the builds
            timed at block 0 (round_kernel_chaos_paged_timing,
            round_kernel_chaos_paged_diet_timing)
+  round_kernel_lease  the eight lease builds (-DRAFT_LEASE=1 with every
+           combination of diet, paging and chaos) against
+           round_kernel_ref on a 128-group cluster with check_quorum and
+           live leases: K in {1,4} x seed 5 (margin 0, metrics on) and 17
+           (margin 2, metrics off), leases dropped with epochs at 32,767
+           and renewal counters at 2^31 - 2, a transfer and a conf change
+           that revoke; the chaos builds under tick skew 0.5, a crash
+           window and an instant restart of leased leaders; the paged
+           builds over segments of two 96-lane blocks, one pool that
+           exhausts; sha256 over every leaf, naming the first that differs
+  parity_lease   a 64-group FusedCluster(check_quorum=True, lease=True,
+           chaos=True) through 33 rounds of a lease skew storm: on the card
+           eager and pallas K=1 and K=3, slim and diet, and pallas paging in
+           the kernel, against the eager CPU run: one host_state + chaos
+           digest and one lease_stats
+  main_pallas_lease  the main cell with check_quorum=True, lease=True,
+           lease_margin=1, chaos=True: the election warm-up, then
+           benches/lease_ab.py's device schedule (12 rounds, 48 calm, three
+           bursts of tick skew 0.7 on every slot of 6 rounds with 12 calm
+           after each, 48 settle), at K=8, K=8 diet and K=1, and the
+           lease-off twin at K=8; gates: every group elected, one digest
+           across the lease runs, their digest without the lease columns
+           equal to the twin's, grants, renewals and skew revocations > 0,
+           after every segment no lease held by a lane that is not a leader
+           or has a transfer pending, a conf change in flight or skew past
+           the margin, launches as the chunks launch, no error bit but the
+           window's capacity; round_ms, groups-ticks/s and peak memory
+           beside the twin's (main_pallas_lease_vs_twin); each lease build
+           timed beside the build without lease and its bytes bound, the
+           unpaged ones at the K=8 runs' block 0, the paged ones at one
+           8,192-group block of the chaos-paged layout
+           (round_kernel_lease*_timing)
 
 Every launch of a paged build waits with a deadline (`synchronize`): a
 segment barrier that does not complete fails the phase (the kernel also
@@ -170,6 +202,7 @@ traps a wait over 10 s) instead of stalling the script.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -191,9 +224,11 @@ from raft_tpu_torch.ops import quorum_cuda as qc
 from raft_tpu_torch.ops import paged as tpg
 from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.ops.fused import FusedCluster, fused_rounds
+from raft_tpu_torch.ops.lease import EPOCH_WRAP, LEASE_COUNTER_FIELDS, LEASE_STATE_FIELDS
 from raft_tpu_torch.ops.log import ERR_COMMIT_OUT_OF_RANGE, ERR_WINDOW_OVERFLOW
 from raft_tpu_torch.scheduler import BlockedFusedCluster
-from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED
+from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED, is_packed
+from raft_tpu_torch.types import StateType
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
@@ -216,6 +251,10 @@ _B5 = dict(v=5, **BENCH_WIDTHS)
 # ... and the chaos builds, slim and diet, at the engine block, the small
 # block and the second V's block
 # ... and the chaos builds with paging, slim and diet, at the engine block
+# ... and the eight lease builds (-DRAFT_LEASE=1 with each other flag set)
+# at the engine block; each entry ends with its lease flag
+LEASE_BUILDS = [(diet, plan, chaos) for chaos in (False, True) for plan in (None, PAGED_PLAN)
+                for diet in (False, True)]
 ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
                 (_B5, 10, False, None, False), (_B3, 48, False, None, False),
                 (_B3, 192, False, None, False), (_B3, 96, True, None, False),
@@ -225,6 +264,8 @@ ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
     (d, cta, diet, None, True) for d, cta in ((_B3, 96), (_B3, 6), (_B5, 10))
     for diet in (False, True)] + [
     (_B3, 96, diet, PAGED_PLAN, True) for diet in (False, True)]
+ROUND_BUILDS = [b + (False,) for b in ROUND_BUILDS] + [
+    (_B3, 96, diet, plan, chaos, True) for diet, plan, chaos in LEASE_BUILDS]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -657,9 +698,12 @@ def run_main(dev, phase="main", **engine):
 
 
 def carry_leaves(st, fb, samp, parts) -> list:
-    """(name, numpy leaf) of one launch's outputs, in packing order."""
+    """(name, numpy leaf) of one launch's outputs, in packing order (the
+    lease columns after the other state leaves)."""
     names = rc.dataclass_names()
     out = [("state." + n, x) for n, x in zip(names["STATE"], interop.to_numpy_leaves(st))]
+    if st.lease_left is not None:
+        out += [("state." + n, getattr(st, n).cpu().numpy()) for n in LEASE_STATE_FIELDS]
     out += [("fabric." + n, x) for n, x in zip(names["FABRIC"], interop.to_numpy_leaves(fb))]
     if samp is not None:
         out += [("samp_index", samp[0].cpu().numpy()), ("samp_round", samp[1].cpu().numpy())]
@@ -928,7 +972,7 @@ def build_all() -> None:
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
     for b in ROUND_BUILDS:
-        rows[rc.target(*b).key].update(cta_lanes=b[1], **rc.occupancy(*b))
+        rows[rc.target(*b).key].update(cta_lanes=b[1], **rc.occupancy(*b[:5], lease=b[5]))
     emit("build", seconds=time.perf_counter() - t0, targets=rows)
 
 
@@ -2018,6 +2062,448 @@ def check_main_chaos_paged(dev):
     return runs, timing
 
 
+# -- the leader-lease plane ---------------------------------------------------------
+
+LEASE_MARGIN = 1  # the main cell's lease_margin (RAFT_TPU_LEASE_MARGIN's default)
+# benches/lease_ab.py:60-63, :133-150: 12 rounds, 48 calm, 3 bursts of tick
+# skew 0.7 on every slot (6 rounds, then 12 calm), 48 settle
+LEASE_SCHEDULE = ([(12, 0.0), (48, 0.0)] + [(6, 0.7), (12, 0.0)] * 3 + [(48, 0.0)])
+
+
+def lease_name(diet: bool, plan, chaos: bool) -> str:
+    return rc.kernel_name(diet, plan is not None, chaos, True)
+
+
+def i32(x):
+    return x.to(torch.int32)
+
+
+def lease_edges(c, lanes) -> None:
+    """On `lanes` (leaders): the lease dropped with its epoch at 32,767, so
+    that the next grant wraps it, and the renewal counter at 2^31 - 2, so
+    that it wraps at the second renewal."""
+    st = c.state
+    m = torch.zeros(st.term.shape[0], dtype=torch.bool, device=st.term.device)
+    m[torch.as_tensor(lanes, device=m.device)] = True
+
+    def put(col, value):
+        return torch.where(m, value, i32(col)).to(col.dtype)
+
+    c.state = dataclasses.replace(st, lease_left=put(st.lease_left, 0),
+                                  lease_epoch=put(st.lease_epoch, EPOCH_WRAP - 1),
+                                  lease_renewals=put(st.lease_renewals, 2**31 - 2))
+
+
+def lease_held_violations(c, margin: int):
+    """(lanes holding a lease, lanes holding one against the plane's safety
+    shape: not a leader, a transfer pending, a confchange in flight or
+    skew past the margin), over every block of c, read on the card."""
+    held = bad = 0
+    for b in getattr(c, "blocks", [c]):
+        st = b.state
+        vo = st.voters_out
+        cc = (i32(st.pending_conf_index) > i32(st.applied)) | (
+            vo.any(dim=1) if vo.dim() == 2 else i32(vo) != 0)
+        ok = ((i32(st.state) == int(StateType.LEADER)) & (i32(st.lead_transferee) == 0) & ~cc
+              & (i32(st.lease_skew) <= margin))
+        h = i32(st.lease_left) > 0
+        held = held + h.sum()
+        bad = bad + (h & ~ok).sum()
+    return int(held), int(bad)
+
+
+def check_round_kernel_lease(dev):
+    """Every lease build against round_kernel_ref on a 128-group cluster
+    with check_quorum and live leases, at K in {1,4} x seeds 5 (margin 0,
+    metrics on) and 17 (margin 2, metrics off), 9 rounds as pallas_rounds
+    launches them; before them, leaders of groups 0-3 drop their lease
+    with the epoch at 32,767 and renewal counters at 2^31 - 2; ops: a
+    transfer away from the leaders of groups 8-11 and a conf change at
+    those of groups 12-15 (both revoke), a muted follower in groups 16-17
+    and every second launch without proposals (no self-ack: the leader's
+    own slot completes its ack quorum); chaos builds: tick skew 0.5 on
+    every lane, a crash window of group 4's leader inside a K=4 launch and
+    an instant restart of group 5's; paged builds: segments of two 96-lane
+    blocks, seed 17 with a pool of 8 pages a segment (lanes exhaust).
+    sha256 over every carry leaf (the lease columns included), partials
+    row, PagedLog leaf and probe column, naming the first that differs."""
+    cases = wraps = exhausted = 0
+    events = dict.fromkeys(LEASE_COUNTER_FIELDS, 0)
+    g, v, cta, tile = 128, VOTERS, 96, 192
+    n = g * v
+    for diet, plan, chaos in LEASE_BUILDS:
+        paged = plan is not None
+        name = lease_name(diet, plan, chaos)
+        for k in (1, 4):
+            for seed, margin in ((5, 0), (17, 2)):
+                metrics = seed == 5
+                pool = 8 if paged and seed == 17 else 0
+                c = FusedCluster(g, v, seed=seed, device=dev, diet=diet, chaos=chaos,
+                                 lease=True, lease_margin=margin, check_quorum=True,
+                                 election_tick=6,
+                                 shape=paged_shape(n, pool) if paged else bench_shape(n),
+                                 engine="pallas", tile_lanes=tile, paged=paged,
+                                 paged_inkernel=paged)
+                c.run(24, auto_propose=True, auto_compact_lag=12)
+                synchronize(f"{name} warm-up")
+                lead = c.leader_lanes()
+                if len(lead) < 16 or int((i32(c.state.lease_left) > 0).sum()) == 0:
+                    raise AssertionError(f"{name} seed={seed}: {len(lead)} leaders, no lease")
+                of = {int(x) // v: int(x) for x in lead}
+                lease_edges(c, [of[gi] for gi in range(4) if gi in of])
+                # a muted follower in groups 16-17: in the launches without
+                # proposals their leaders' ack quorums need the own slot
+                c.set_mute([next(gi * v + j for j in range(v) if gi * v + j != of.get(gi))
+                            for gi in (16, 17)])
+                ops = c.ops(transfer_to={of[gi]: (of[gi] + 1) % v + 1
+                                         for gi in range(8, 12) if gi in of},
+                            prop_cc={of[gi]: 1 for gi in range(12, 16) if gi in of},
+                            prop_n={i: 1 for i in range(0, n, v)}, prop_bytes=7)
+                if chaos:
+                    r0 = int(c.chaos.round)
+                    crash = np.full(n, tch.NEVER, np.int32)
+                    restart = np.full(n, tch.NEVER, np.int32)
+                    for gi, (a, b) in ((4, (r0 + 1, r0 + 3)), (5, (r0 + 2, r0 + 2))):
+                        if gi in of:
+                            crash[of[gi]], restart[of[gi]] = a, b
+                    c.set_chaos(tick_skew_num=tch.probability(0.5), crash_at=crash,
+                                restart_at=restart)
+                steps = [k] * (9 // k) + ([9 % k] if 9 % k else [])
+                for i, kc in enumerate(steps):
+                    m = c.metrics
+                    samp = (m.samp_index, m.samp_round) if metrics else None
+                    args = (c.state, c.fab, ops, c.mute, samp, m.round_ctr if metrics else None)
+                    kw = dict(v=v, kc=kc, cta=cta, apply_ops=i == 0, ops_round0_only=True,
+                              do_tick=True, auto_propose=i % 2 == 0, auto_compact_lag=12,
+                              paged=c.paged, chaos=c.chaos, seg_lanes=tile, lease_margin=margin)
+                    got = rc.round_call(*args, segments=c._segments, **kw)
+                    what = f"{name} K={k} seed={seed} margin={margin} launch {i}"
+                    synchronize(what)
+                    want = plr.round_kernel_ref(*args, **kw)
+                    a, b = carry_leaves(*got[:4]), carry_leaves(*want[:4])
+                    if paged:
+                        a, b = a + paged_leaves(got[4]), b + paged_leaves(want[4])
+                    if chaos:
+                        a, b = a + probe_leaves(got[-1]), b + probe_leaves(want[-1])
+                    bad = first_difference(a, b)
+                    if bad is not None or interop.digest([x for _, x in a]) != interop.digest(
+                        [x for _, x in b]
+                    ):
+                        raise AssertionError(f"{what}: first differing leaf {bad}")
+                    st0 = c.state
+                    c.state, c.fab = got[0], got[1]
+                    for f in LEASE_COUNTER_FIELDS:
+                        events[f] += int((getattr(c.state, f) != getattr(st0, f)).sum())
+                    wraps += int(((i32(st0.lease_epoch) == EPOCH_WRAP - 1)
+                                  & (i32(c.state.lease_epoch) == 0)).sum())
+                    if paged:
+                        c.paged = got[4]
+                    if metrics:
+                        c.metrics = plr.fold_partials(m, got[2], got[3], kc)
+                    if chaos:
+                        c.chaos = plr.fold_chaos(c.chaos, got[-1], got[3], kc, metrics)
+                    cases += 1
+                hit = int(((c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0).sum())
+                if (hit > 0) != (pool > 0):
+                    raise AssertionError(f"{name} K={k} seed={seed}: {hit} exhausted lanes")
+                exhausted += hit
+    if not all(events.values()) or wraps == 0:
+        raise AssertionError(f"round_kernel_lease: events {events}, epoch wraps {wraps}")
+    emit("round_kernel_lease", launches_compared=cases, builds=len(LEASE_BUILDS),
+         cases="8 lease builds x K{1,4} x {seed 5 margin 0 (metrics on), seed 17 margin 2 "
+               "(metrics off; paged: 8 pages a segment)}",
+         lanes=n, cta_lanes=cta, paged_tile_lanes=tile, lane_events=events,
+         epoch_wraps=wraps, exhausted_lanes=exhausted, max_abs_err=0)
+
+
+def check_parity_lease():
+    """FusedCluster(check_quorum=True, lease=True, chaos=True), 64 groups x
+    33 rounds through a lease skew storm (two waves of tick skew 0.7 on
+    every slot, 6 rounds each), compaction lag 12: on the card eager and
+    pallas K=1 and K=3, slim and diet, and pallas paging in the kernel
+    (K=3, one segment of two 96-lane blocks) against the eager CPU run:
+    one digest over host_state (the lease columns included) and the chaos
+    leaves, and one lease_stats."""
+    g = 64
+    n = g * VOTERS
+    cuts = (0, 9, 15, 21, 27, 33)
+
+    def run(dev, diet=False, paged=False, **engine):
+        c = FusedCluster(g, VOTERS, seed=11, shape=paged_shape(n) if paged else bench_shape(n),
+                         device=dev, diet=diet, chaos=True, lease=True, check_quorum=True,
+                         election_tick=6, paged=paged, paged_inkernel=paged, **engine)
+        sched = ChaosSchedule(g, VOTERS).lease_skew_storm(groups=range(g), at=9, bursts=2,
+                                                          duration=6, gap=6, prob=0.7)
+        for a, b in zip(cuts, cuts[1:]):
+            c.set_chaos(**sched.columns(a))
+            c.run(b - a, auto_propose=True, auto_compact_lag=12)
+            if dev == "cuda":
+                synchronize(f"parity_lease {engine}")
+        return c, interop.digest(interop.to_numpy_leaves(c.host_state())
+                                 + interop.to_numpy_leaves(c.chaos)), c.lease_stats()
+
+    _, want, stats = run("cpu")
+    if not (stats["lease_grants"] and stats["lease_renewals"] and stats["lease_skew_revocations"]):
+        raise AssertionError(f"parity_lease: the CPU run's lease counters {stats}")
+    out = {"cpu": want}
+    runs = [(name + ("_diet" if diet else ""), dict(diet=diet, **engine))
+            for diet in (False, True)
+            for name, engine in (("eager", {}),
+                                 ("pallas_k1", dict(engine="pallas", rounds_per_call=1)),
+                                 ("pallas_k3", dict(engine="pallas", rounds_per_call=3)))]
+    runs.append(("pallas_inkernel_paged_k3", dict(engine="pallas", rounds_per_call=3,
+                                                  paged=True)))
+    for key, kw in runs:
+        _, out[key], got = run("cuda", **kw)
+        if out[key] != want or got != stats:
+            raise AssertionError(f"parity_lease {key}: card {out[key]} {got} != cpu {want} {stats}")
+    emit("parity_lease", groups=g, rounds=33, digests=out, lease_stats=stats)
+
+
+def lease_digests(c) -> tuple[str, str]:
+    """(chaos_digest, the same without the seven lease columns): the raft
+    trajectory, which the lease plane never feeds back into, in the
+    second. The lease columns are the state's last leaves."""
+    full, raft = [], []
+    for b in c.blocks:
+        st = b.host_state()
+        leaves = interop.to_numpy_leaves(st)
+        cut = len(leaves) - (len(LEASE_STATE_FIELDS) if st.lease_left is not None else 0)
+        chaos = interop.to_numpy_leaves(b.chaos)
+        full += leaves + chaos
+        raft += leaves[:cut] + chaos
+    return interop.digest(full), interop.digest(raft)
+
+
+def run_main_lease(dev, run: str, lease: bool = True, **engine):
+    """The main cell with check_quorum=True, chaos=True and the lease plane
+    (lease_margin 1), or without it (the twin): the election warm-up, then
+    LEASE_SCHEDULE; after every schedule segment the held leases are
+    checked against the plane's safety shape on the card. Returns
+    (cluster, row)."""
+    phase = "main_pallas_lease"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c = BlockedFusedCluster(
+        MAIN_GROUPS, VOTERS, block_groups=MAIN_BLOCK_GROUPS, seed=42,
+        shape=bench_shape(BLOCK_LANES), round_chunk=8, device=dev, chaos=True,
+        check_quorum=True, lease=lease, lease_margin=LEASE_MARGIN, **engine,
+    )
+    k = engine["rounds_per_call"]
+    expect = 0
+
+    def advance(rounds):
+        nonlocal expect
+        c.run(rounds, auto_propose=True, auto_compact_lag=8)
+        expect += c.k * sum(-(-step // k) for step, _ in c.sweep(rounds))
+
+    qc.reset_launches()
+    rc.reset_launches()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = 0
+    while True:  # bench.py's warm-up: 32 rounds, then until every group has a leader
+        advance(32)
+        warm += 32
+        if c.leader_count() == MAIN_GROUPS:
+            break
+        if warm > WARM_LIMIT:
+            raise RuntimeError(f"{phase} {run}: {c.leader_count()}/{MAIN_GROUPS} after {warm}")
+    warm_s = time.perf_counter() - t0
+    run_s = 0.0
+    held, violations = [], 0
+    for rounds, prob in LEASE_SCHEDULE:
+        c.set_chaos(tick_skew_num=tch.probability(prob) if prob else 0)
+        t1 = time.perf_counter()
+        advance(rounds)
+        synchronize(f"{phase} {run}: a segment of {rounds} rounds")
+        run_s += time.perf_counter() - t1
+        if lease:
+            h, bad = lease_held_violations(c, LEASE_MARGIN)
+            held.append(h)
+            violations += bad
+    launches = {name: x.launches for name, x in {**qc.KERNELS, **rc.KERNELS}.items()}
+    rounds = sum(r for r, _ in LEASE_SCHEDULE)
+    diet = engine.get("diet", False)
+    name = rc.kernel_name(diet, False, True, lease)
+    errors = {}
+    for i, b in enumerate(c.blocks):
+        bits = b.state.error_bits.cpu().numpy()
+        for lane in np.nonzero(bits)[0]:
+            errors[i * c.lanes_per_block + int(lane)] = int(bits[lane])
+    row = dict(
+        run=run, lease=lease, lease_margin=LEASE_MARGIN, **engine, groups=MAIN_GROUPS,
+        voters=VOTERS, blocks=c.k, setup_s=setup_s, warm_rounds=warm, warm_s=warm_s,
+        rounds=rounds, run_s=run_s, round_ms=1e3 * run_s / rounds,
+        groups_ticks_per_s=MAIN_GROUPS * rounds / run_s, leaders=c.leader_count(),
+        total_committed=c.total_committed(), lease_stats=c.lease_stats(),
+        held_after_segments=held, lease_violations=violations,
+        error_lanes={str(lane): bits for lane, bits in sorted(errors.items())},
+        launches={n_: x for n_, x in launches.items() if x}, expected_launches=expect,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    row["digest"], row["raft_digest"] = lease_digests(c)
+    emit(phase, **row)
+    capacity = ERR_WINDOW_OVERFLOW | ERR_COMMIT_OUT_OF_RANGE
+    if any(bits & ~capacity for bits in errors.values()):
+        raise AssertionError(f"{phase} {run}: error bits beyond window capacity: {errors}")
+    if violations:
+        raise AssertionError(f"{phase} {run}: {violations} leases held against the safety shape")
+    if lease:
+        st = row["lease_stats"]
+        if not all(st[f] > 0 for f in ("lease_grants", "lease_renewals",
+                                       "lease_skew_revocations")):
+            raise AssertionError(f"{phase} {run}: lease counters {st}")
+    want = {name: expect, "joint_kernel": 0, rc.kernel_name(diet, False, True, not lease): 0,
+            rc.kernel_name(diet, False, False, lease): 0}
+    for kname, count in want.items():
+        if launches[kname] != count:
+            raise AssertionError(f"{phase} {run}: {kname} launched {launches[kname]} times, "
+                                 f"expected {count}")
+    return c, row
+
+
+def time_round_kernel_lease(b, phase: str, chaos: bool) -> dict:
+    """A lease build at a block's carry (b: a FusedCluster with the lease
+    columns, paged in the kernel or not) against round_kernel_ref, K=1 and
+    K=8, timed on raw launches beside the build without lease on the same
+    carry (the lease columns left out), the plain version and the bytes
+    bound: every input leaf read once and every output leaf written once,
+    the lease columns, and where the build takes them the chaos, page and
+    segment leaves, included."""
+    diet, paged = b._diet, b.paged is not None
+    m = b.metrics
+    n = b.shape.n_lanes
+    args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    no_lease = (dataclasses.replace(b.state, **dict.fromkeys(LEASE_STATE_FIELDS)),) + args[1:]
+    d = rc.dims_of(b.state, b.fab, b.v, b.paged)
+    tile = b._pallas_tile
+    cta = rc.cta_lanes(tile, b.v, d, chaos=chaos, paged=paged)
+    plan = rc.paged_plan(b.paged) if paged else None
+    kern = rc.KERNELS[rc.kernel_name(diet, paged, chaos, True)]
+    base = rc.KERNELS[rc.kernel_name(diet, paged, chaos, False)]
+    ch_bytes = (sum(getattr(b.chaos, k).numel() * 4 for k in tch.KNOBS + tch.PROBES * 2) + 12
+                if chaos else 0)
+    seg_bytes = 0 if b._segments is None else 8 * (1 + n // cta)
+
+    def kw(kc):
+        return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True, do_tick=True,
+                    auto_propose=True, auto_compact_lag=8, paged=b.paged,
+                    chaos=b.chaos if chaos else None, seg_lanes=tile, lease_margin=LEASE_MARGIN)
+
+    def leaves(res):
+        out = carry_leaves(*res[:4])
+        if paged:
+            out += paged_leaves(res[4])
+        if chaos:
+            out += probe_leaves(res[-1])
+        return out
+
+    def raw(kernel, a, kc, lease):
+        ptrs, dims, flags, lag, outs = rc.pack(*a, segments=b._segments, **kw(kc))
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        return raw_launch(kernel, arr, nptr, cdims, flags, lag, segments=b._segments,
+                          target=rc.target(d, cta, diet, plan, chaos, lease)), outs
+
+    rows = {}
+    for kc in (1, 8):
+        go, outs = raw(kern, args, kc, True)
+        go()
+        synchronize(f"{kern.name} K={kc}")
+        want = plr.round_kernel_ref(*args, **kw(kc))
+        bad = first_difference(leaves(outs), leaves(want))
+        if bad is not None:
+            raise AssertionError(f"{kern.name} K={kc} at {n} lanes: first differing leaf {bad}")
+        pg_bytes = (sum(x.nbytes for _, x in paged_leaves(b.paged) + paged_leaves(outs[4]))
+                    if paged else 0)
+        nbytes = round_bytes(args, outs[:4]) + pg_bytes + ch_bytes + seg_bytes
+        ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+        synchronize(f"{kern.name} K={kc} timing")
+        go0, outs0 = raw(base, no_lease, kc, False)
+        base_ms = cuda_ms(go0, iters=50 if kc == 1 else 10)
+        synchronize(f"{base.name} K={kc} timing")
+        rows[kc] = dict(max_abs_err=0, ms=ms, ms_per_round=ms / kc,
+                        without_lease_ms=base_ms, without_lease_ms_per_round=base_ms / kc,
+                        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                        bytes=nbytes, rounds=kc)
+        if kc == 1:
+            rows[kc].update(
+                **rc.occupancy(d, cta, diet, plan, chaos, lease=True),
+                wrapper_ms=cuda_ms(lambda: rc.round_call(*args, segments=b._segments, **kw(1)),
+                                   iters=20),
+                plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
+            )
+        del go, outs, want, go0, outs0
+    row = dict(rows[1], cta_lanes=cta, tile_lanes=tile, lanes=n, k8=rows[8])
+    emit(phase, **row)
+    return row
+
+
+def lease_paged_cell(dev, diet: bool):
+    """One block of the chaos-paged cell's layout (8,192 groups, 65,536
+    pool pages, paging in the kernel over 3,072-lane segments) with
+    check_quorum=True, lease=True, chaos=True at K=8, warmed up until every
+    group has a leader: the carry the paged lease builds are timed on."""
+    g = CHAOS_PAGED_BLOCK_GROUPS
+    c = FusedCluster(g, VOTERS, seed=42, shape=paged_shape(g * VOTERS, CHAOS_PAGED_POOL),
+                     device=dev, diet=diet, chaos=True, lease=True, lease_margin=LEASE_MARGIN,
+                     check_quorum=True, engine="pallas", rounds_per_call=8, paged=True,
+                     paged_inkernel=True)
+    for _ in range(WARM_LIMIT // 32):
+        c.run(32, auto_propose=True, auto_compact_lag=8)
+        synchronize("lease_paged_cell warm-up")
+        if len(c.leader_lanes()) == g:
+            return c
+    raise RuntimeError(f"lease_paged_cell: {len(c.leader_lanes())}/{g} leaders")
+
+
+def check_main_lease(dev):
+    """main_pallas_lease at K=8 slim, K=8 diet and K=1 slim, and its
+    lease-off twin at K=8: one digest with the lease columns across the
+    three lease runs, their raft digest equal to the twin's; the lease
+    builds timed at block 0 of the K=8 runs (with and without chaos) and
+    the paged lease builds at a paged cell's block."""
+    runs, timing = {}, {}
+    for run, lease, engine in (
+        ("k8", True, dict(engine="pallas", rounds_per_call=8)),
+        ("k8_diet", True, dict(engine="pallas", rounds_per_call=8, diet=True)),
+        ("k1", True, dict(engine="pallas", rounds_per_call=1)),
+        ("twin_k8", False, dict(engine="pallas", rounds_per_call=8)),
+    ):
+        c, runs[run] = run_main_lease(dev, run, lease, **engine)
+        if run in ("k8", "k8_diet"):
+            b = c.blocks[0]
+            for chaos in (True, False):
+                name = lease_name(b._diet, None, chaos)
+                timing[name] = time_round_kernel_lease(b, name + "_timing", chaos)
+        del c
+        torch.cuda.empty_cache()
+    for diet in (False, True):
+        c = lease_paged_cell(dev, diet)
+        for chaos in (True, False):
+            name = lease_name(diet, PAGED_PLAN, chaos)
+            timing[name] = time_round_kernel_lease(c, name + "_timing", chaos)
+        del c
+        torch.cuda.empty_cache()
+    lease_runs = ("k8", "k8_diet", "k1")
+    digests = {r: runs[r]["digest"] for r in runs}
+    raft = {r: runs[r]["raft_digest"] for r in runs}
+    emit("main_pallas_lease_vs_twin",
+         round_ms={r: x["round_ms"] for r, x in runs.items()},
+         groups_ticks_per_s={r: x["groups_ticks_per_s"] for r, x in runs.items()},
+         peak_mem_gb={r: x["peak_mem_gb"] for r, x in runs.items()},
+         digests=digests, raft_digests=raft)
+    if len({digests[r] for r in lease_runs}) != 1:
+        raise AssertionError(f"main_pallas_lease: digests differ: {digests}")
+    if len(set(raft.values())) != 1 or raft["twin_k8"] != digests["twin_k8"]:
+        raise AssertionError(f"main_pallas_lease: the raft trajectory differs from the "
+                             f"lease-off twin's: {raft}")
+    if any(runs[r]["error_lanes"] != runs["twin_k8"]["error_lanes"] for r in runs):
+        raise AssertionError("main_pallas_lease: the error lanes differ between the runs")
+    return runs, timing
+
+
 def _device_us(e) -> float:
     return e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
 
@@ -2137,6 +2623,18 @@ def main() -> int:
     launches["round_kernel_chaos_paged_diet"] = (
         cp_runs["k8_diet"]["launches"]["round_kernel_chaos_paged_diet"])
 
+    # the leader-lease plane: its eight builds, the card against the CPU,
+    # and the main cell with check_quorum, chaos and a lease skew storm
+    # beside its lease-off twin
+    check_round_kernel_lease(dev)
+    check_parity_lease()
+    lease_runs, lease_timing = check_main_lease(dev)
+    timing.update(lease_timing)
+    for diet, plan, chaos in LEASE_BUILDS:  # the main cell runs the chaos builds unpaged
+        name = lease_name(diet, plan, chaos)
+        run = "k8_diet" if diet else "k8"
+        launches[name] = lease_runs[run]["launches"].get(name, 0)
+
     replaces = {
         "committed_kernel": "raft_tpu/ops/quorum_pallas.py:99",
         "joint_kernel": "raft_tpu/ops/quorum_pallas.py:106",
@@ -2149,6 +2647,10 @@ def main() -> int:
         "round_kernel_chaos_diet": "raft_tpu/ops/pallas_round.py:616",
         "round_kernel_chaos_paged": "raft_tpu/ops/pallas_round.py:589",
         "round_kernel_chaos_paged_diet": "raft_tpu/ops/pallas_round.py:589",
+        # the lease branch: the lease leaves of the carry and fused_round's
+        # lease tail, run from the kernel body
+        **{lease_name(diet, plan, chaos): "raft_tpu/ops/pallas_round.py:676"
+           for diet, plan, chaos in LEASE_BUILDS},
     }
     kernels = []
     for name in replaces:

@@ -16,7 +16,8 @@ bit. Fault model (host-settable columns, SETTABLE):
   `part_send[src] & part_recv[dst] != 0` (different masks: asymmetric).
 - tick_skew_num [N]: probability a lane skips its tick this round.
 - crash_at / restart_at [N]: while crash_at <= round < restart_at the lane
-  is down: volatile state wiped at both edges (state.wipe_volatile), no
+  is down: volatile state wiped at both edges (state.wipe_volatile, the
+  lease plane's lease_left and lease_skew included), no
   inbound, no outbound, no tick, host ops zeroed. NEVER disables.
 
 Recovery probe: from `heal_round` on, per group, the first round with a

@@ -18,8 +18,9 @@ resident carry, as the JAX package's does; host_state is the paged view.
 The columns, heal sets and probe folds are numpy over whole group arrays
 (the JAX package loops in Python over every group of every event, seconds
 a segment at 1,048,576 groups); the arrays and snapshots are the same.
-The wire-plane builders (fabric) and the lease skew storm are not ported:
-they raise NotImplementedError naming their ROADMAP items.
+The wire-plane builders (fabric) are not ported: they raise
+NotImplementedError naming their ROADMAP item. `lease_skew_storm` builds
+the lease plane's skew waves, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from raft_tpu_torch.types import StateType
 
 _WIRE = ("the fabric wire plane is not ported to raft_tpu_torch yet "
          "(ROADMAP Queue 1: fabric/ and the bridge)")
-_LEASE = "the lease plane is not ported to raft_tpu_torch yet (ROADMAP Queue 1: the lease plane)"
 
 
 @dataclasses.dataclass
@@ -134,8 +134,16 @@ class ChaosSchedule:
                                   members=tuple(members), prob=prob))
         return self
 
-    def lease_skew_storm(self, *args, **kwargs):
-        raise NotImplementedError(_LEASE)
+    def lease_skew_storm(self, groups, at, bursts, duration=6, gap=8, prob=0.75,
+                         members=None):
+        """The leader-lease adversary (raft_tpu/chaos/schedule.py:153-168):
+        `bursts` waves of clock skew on every member slot, `duration`
+        rounds each with `gap` calm rounds between them, so that leases
+        are granted again between waves and then revoked by the skew."""
+        members = tuple(range(self.v)) if members is None else tuple(members)
+        for k in range(bursts):
+            self.skew(groups, at + k * (duration + gap), duration, prob, members=members)
+        return self
 
     def kill(self, lanes, at, down):
         """Crash explicit global lanes at `at`, restart at `at+down`

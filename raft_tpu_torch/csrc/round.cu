@@ -114,6 +114,20 @@
 //   runs the chaos rounds and pages out: a crash wipe keeps the log and
 //   its cursors (state.py wipe_volatile), so the probe's barriers inside
 //   the rounds and the segment barrier after them never meet.
+// - The lease build (-DRAFT_LEASE=1: the leader-lease plane of
+//   raft_tpu_torch/ops/lease.py, replacing the Pallas kernel's lease branch:
+//   the lease leaves of its carry, :486, and fused_round's lease tail,
+//   raft_tpu/ops/fused.py:1470-1497, run from :676). Composes with every
+//   other flag. Each round ends in the lease tail on the round's final
+//   role, transfer and confchange state: the round's append and heartbeat
+//   ack cells, kept as a V-bit mask (Events::ack) from their phases to the
+//   round's end, with the self slot, vote a joint quorum; the countdown
+//   and the skew ride in registers, and the epoch and the four event
+//   counters live in their output rows (copied there at load, updated in
+//   place on an event: one owner a lane). The margin is a launch argument
+//   (Args::margin), so one build serves every margin. A crash or restart
+//   wipe zeroes the countdown and the skew (state.py wipe_volatile); a
+//   chaos tick the lane skipped counts as skew (skipped_tick).
 // - The commit index and vote tallies are per lane over its own [V]
 //   progress rows: raft::joint_committed / reduce_half<V> of quorum.cuh,
 //   shared with quorum.cu.
@@ -349,6 +363,23 @@
   X(reelect_round, I32, LANE)    \
   X(recommit_round, I32, LANE)
 
+// The lease build's columns (ops/lease.py LEASE_STATE_FIELDS: RaftState's
+// fields after cfg), in pointer order, in and out, and the diet-v2 rows of
+// the three the packed carry narrows (the counters stay int32).
+#define RAFT_LEASE_FIELDS(X)         \
+  X(lease_left, I32, LANE)           \
+  X(lease_epoch, I32, LANE)          \
+  X(lease_skew, I32, LANE)           \
+  X(lease_grants, I32, LANE)         \
+  X(lease_renewals, I32, LANE)       \
+  X(lease_revocations, I32, LANE)    \
+  X(lease_skew_revocations, I32, LANE)
+
+#define RAFT_LEASE_DIET(X)           \
+  X(lease_left, U16, LANE)           \
+  X(lease_epoch, U16, LANE)          \
+  X(lease_skew, U16, LANE)
+
 #ifndef RAFT_DIET
 #define RAFT_DIET 0
 #endif
@@ -359,6 +390,10 @@
 
 #ifndef RAFT_CHAOS
 #define RAFT_CHAOS 0
+#endif
+
+#ifndef RAFT_LEASE
+#define RAFT_LEASE 0
 #endif
 #if RAFT_PAGED && (!defined(RAFT_WRES) || !defined(RAFT_PE) || !defined(RAFT_M))
 #error "the paged build takes its geometry: -DRAFT_WRES= -DRAFT_PE= -DRAFT_M="
@@ -429,6 +464,10 @@ enum : int { RAFT_CHAOS_KNOBS(RAFT_ENUM_CHAOS) kChaosKnobs };
 enum : int { RAFT_CHAOS_PROBES(RAFT_ENUM_CHAOS) kChaosProbes };
 #undef RAFT_ENUM_CHAOS
 
+#define RAFT_ENUM_LEASE(name, dt, shape) LS_##name,
+enum : int { RAFT_LEASE_FIELDS(RAFT_ENUM_LEASE) kLeaseN };
+#undef RAFT_ENUM_LEASE
+
 // The pointer table, in this order (round_cuda.py builds the same list):
 enum : int {
   P_STATE_IN = 0,                  // RaftState leaves without cfg, slim
@@ -454,7 +493,10 @@ enum : int {
   P_CH_HEAL,                                 // [] i32 heal_round,
   P_CH_SEED,                                 // [] u32 the PRNG stream,
   P_CH_PROBE_OUT,                            // the probe columns out
-  kNumPtrs = RAFT_CHAOS ? P_CH_PROBE_OUT + kChaosProbes : P_CH_KNOB
+  // the lease build only: its columns in (LS_* order), then out
+  P_LEASE_IN = RAFT_CHAOS ? P_CH_PROBE_OUT + kChaosProbes : P_CH_KNOB,
+  P_LEASE_OUT = P_LEASE_IN + kLeaseN,
+  kNumPtrs = RAFT_LEASE ? P_LEASE_OUT + kLeaseN : P_LEASE_IN
 };
 
 // the PagedLog leaves (ops/paged.py LEAVES): pt [N, M] u16, the pool
@@ -518,6 +560,8 @@ constexpr int INDEX_OVERFLOW_MARGIN = 1 << 30;
 constexpr int ERR_DIET_OVERFLOW = 64;  // state.py: a value clamped at the diet boundary
 constexpr int ERR_PAGE_EXHAUSTED = 128;  // state.py: a lane's pages did not fit its pool
 constexpr int BIG = 2147483647;
+constexpr int EPOCH_WRAP = 1 << 15;  // ops/lease.py: lease_epoch wraps here
+constexpr long long kMaxMargin = 1 << 20;  // the lease margins a launch takes
 
 struct Args {
   void *p[kNumPtrs];
@@ -528,6 +572,7 @@ struct Args {
   long long pool_rows;  // pool rows per allocation segment (paged build), else 0
   int bps;              // CUDA blocks per allocation segment (paged build), else 1
   uint32_t epoch;       // this launch's tag of the segment words (bps > 1)
+  int margin;           // the lease margin (lease build), else 0
 };
 
 // ---------------------------------------------------------------------------
@@ -551,7 +596,7 @@ enum : int { K_LANE, K_PEER, K_WIN, K_INFL, K_READ, K_READ_PEER, K_ENT };
 // How leaf K of group G is stored in device memory, given its slim
 // storage type ST: as ST (T = ST, kind -1: the slim table's shape), or in
 // a diet build as its RAFT_*_DIET row (T and kind from there).
-enum : int { G_STATE, G_CFG, G_FAB };
+enum : int { G_STATE, G_CFG, G_FAB, G_LEASE };
 template <int G, int K, typename ST>
 struct Store {
   using T = ST;
@@ -567,13 +612,16 @@ struct Store {
 #define RAFT_STORE_STATE(name, dt, shape) RAFT_STORE_ROW(G_STATE, SL_##name, dt, shape)
 #define RAFT_STORE_CFG(name, dt, shape) RAFT_STORE_ROW(G_CFG, CL_##name, dt, shape)
 #define RAFT_STORE_FAB(name, dt, shape) RAFT_STORE_ROW(G_FAB, FL_##name, dt, shape)
+#define RAFT_STORE_LEASE(name, dt, shape) RAFT_STORE_ROW(G_LEASE, LS_##name, dt, shape)
 RAFT_STATE_DIET(RAFT_STORE_STATE)
 RAFT_CFG_DIET(RAFT_STORE_CFG)
 RAFT_FABRIC_DIET(RAFT_STORE_FAB)
+RAFT_LEASE_DIET(RAFT_STORE_LEASE)
 #undef RAFT_STORE_ROW
 #undef RAFT_STORE_STATE
 #undef RAFT_STORE_CFG
 #undef RAFT_STORE_FAB
+#undef RAFT_STORE_LEASE
 #endif
 
 // The state leaves the round never reads or writes (fused.py leaves them
@@ -1569,11 +1617,16 @@ struct Round {
     return n == 0 ? VOTE_WON : res;
   }
 
-  RAFT_HD int joint_vote(const int (&votes)[V]) const {
-    const int r1 = majority_vote(votes, L.voters_in);
-    const int r2 = majority_vote(votes, L.voters_out);
+  static RAFT_HD int joint_vote(const int (&votes)[V], const bool (&in)[V],
+                                const bool (&out)[V]) {
+    const int r1 = majority_vote(votes, in);
+    const int r2 = majority_vote(votes, out);
     const bool any_lost = r1 == VOTE_LOST || r2 == VOTE_LOST;
     return any_lost ? VOTE_LOST : imax(r1, r2);
+  }
+
+  RAFT_HD int joint_vote(const int (&votes)[V]) const {
+    return joint_vote(votes, L.voters_in, L.voters_out);
   }
 
   RAFT_HD void want_send(int j, bool cell, bool sie) {
@@ -1851,6 +1904,9 @@ struct Events {
   int v[kCounters];  // counter deltas
   int bucket;        // latency bucket of a sample closed this round, else -1
   int lat;           // its latency
+#if RAFT_LEASE
+  uint32_t ack;      // bit j: cell j acked this round (append, heartbeat, self)
+#endif
 };
 
 struct Sampler {  // metrics/device.py samp_index / samp_round of this lane
@@ -1872,6 +1928,9 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
   for (int x = 0; x < kCounters; ++x) ev.v[x] = 0;
   ev.bucket = -1;
   ev.lat = 0;
+#if RAFT_LEASE
+  ev.ack = 0;
+#endif
   const int lead0 = L.lead, committed0 = L.committed;
 
   // ---- tick (raft.go:823-862) ----
@@ -2121,6 +2180,9 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
                  in.rep_term[j] == L.term && is_leader;
     const bool self_ar_cell = self_ar && is_self[j];
     const bool ar_all = ar_cell[j] || self_ar_cell;
+#if RAFT_LEASE
+    ev.ack |= uint32_t(ar_all) << j;
+#endif
     ar_index[j] = self_ar_cell ? in.self_index[0] : in.rep_index[j];
     if (ar_all) L.pr_recent_active[j] = true;
     const bool rej_cell = ar_cell[j] && in.rep_reject[j];
@@ -2175,6 +2237,9 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
   for (int j = 0; j < V; ++j) {
     hr_cell[j] = hb_live[j] && in.hb_kind[j] == MSG_HEARTBEAT_RESP &&
                  in.hb_term[j] == L.term && is_leader;
+#if RAFT_LEASE
+    ev.ack |= uint32_t(hr_cell[j]) << j;
+#endif
     if (hr_cell[j]) {
       L.pr_recent_active[j] = true;
       L.pr_msg_app_flow_paused[j] = false;
@@ -2447,6 +2512,9 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
     const int target = imax(L.snap_index, L.applied - lag);
     rd.compact(target, rd.term_at(target));
   }
+#if RAFT_LEASE
+  ev.ack |= bits(rd.is_self);  // the lease tail (lane_lease) runs after the round
+#endif
 
   if (!metrics) return;
   // ---- end-of-round measurement ----
@@ -2483,19 +2551,107 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
 
 namespace raft {
 
-// What a thread keeps across the rounds. The planes keep nothing here: at
+// What a thread keeps across the rounds. The planes keep little here: at
 // the bench Shape a 96-lane block has 168 registers a thread (three blocks
 // an SM, registers allocated four warps a block), which the carry and the
 // round fill. The paged build reads what page-in saw again at page-out
-// (the lane's input cursors and page-table row), and the chaos build keeps
+// (the lane's input cursors and page-table row), the chaos build keeps
 // the probe columns in their output rows, written at load and updated in
-// place (chaos_probe).
+// place (chaos_probe), and the lease build keeps its countdown and skew
+// here and its epoch and counters in their output rows (lease_col).
+#if RAFT_LEASE
+struct LeaseRegs {
+  int left, skew;  // lease_left, lease_skew (widened)
+};
+#endif
 struct Thread {
   Lane L;
   Cfg c;
   Sampler samp;
   uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut)
+#if RAFT_LEASE
+  LeaseRegs lease;
+#endif
 };
+
+#if RAFT_LEASE
+// ---- ops/lease.py: the leader-lease plane of a lane -----------------------
+
+// lease column K's storage type (slim int32; a diet build's RAFT_LEASE_DIET
+// rows uint16) and its input and output rows
+template <int K>
+using LeaseT = typename Store<G_LEASE, K, int32_t>::T;
+template <int K>
+RAFT_HD const LeaseT<K> *lease_in(const Args &a) {
+  return (const LeaseT<K> *)a.p[P_LEASE_IN + K];
+}
+template <int K>
+RAFT_HD LeaseT<K> *lease_col(const Args &a) {
+  return (LeaseT<K> *)a.p[P_LEASE_OUT + K];
+}
+
+// one event on lane i's counter K, in place (int32, wrapping as the plain
+// version's int32 add does)
+template <int K>
+RAFT_HD void lease_count(const Args &a, long long i) {
+  lease_col<K>(a)[i] = (int32_t)((uint32_t)lease_col<K>(a)[i] + 1u);
+}
+
+// lease_round for lane i after its round (fused.py's lease tail): ack, bit
+// j a fresh append or heartbeat ack of cell j or the self slot; skipped,
+// the lane skipped this round's tick
+RAFT_HD void lane_lease(const Args &a, long long i, Thread &th, uint32_t ack, bool skipped) {
+  const Lane &L = th.L;
+  const Cfg &c = th.c;
+  int votes[V];
+  bool cc_active = L.pending_conf_index > L.applied;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    votes[j] = (ack >> j) & 1u ? GRANTED : PENDING;
+    cc_active = cc_active || L.voters_out[j];
+  }
+  const bool ack_quorum = Round::joint_vote(votes, L.voters_in, L.voters_out) == VOTE_WON;
+  const bool is_leader = L.state == LEADER;
+  int left = th.lease.left, skew = th.lease.skew;
+  const bool held = left > 0;
+  left = imax(left - 1, 0);
+  const bool unsafe = !is_leader || L.lead_transferee != 0 || cc_active;
+  if (held && skipped) skew += 1;
+  const bool skew_revoke = held && skew > a.margin;
+  const bool revoke = held && (unsafe || skew_revoke);
+  const bool renew = is_leader && c.check_quorum && ack_quorum && !unsafe && !skew_revoke;
+  const bool granted = renew && !held;
+  if (revoke)
+    left = 0;
+  else if (renew)
+    left = imax(c.election_tick - 1 - a.margin, 1);
+  if (granted || revoke) skew = 0;
+  th.lease.left = left;
+  th.lease.skew = skew;
+  if (granted) {
+    LeaseT<LS_lease_epoch> *ep = lease_col<LS_lease_epoch>(a) + i;
+    *ep = (LeaseT<LS_lease_epoch>)fmod_pos((int)*ep + 1, EPOCH_WRAP);
+    lease_count<LS_lease_grants>(a, i);
+  }
+  if (renew && held) lease_count<LS_lease_renewals>(a, i);
+  if (revoke) lease_count<LS_lease_revocations>(a, i);
+  if (held && skew_revoke && !unsafe) lease_count<LS_lease_skew_revocations>(a, i);
+}
+
+// the storage boundary of the countdown and the skew: a diet build clamps
+// them to uint16 with ERR_DIET_OVERFLOW, as pack_state does (the epoch
+// stays below EPOCH_WRAP and the counters are int32)
+RAFT_HD void lease_roundtrip(Thread &th) {
+#if RAFT_DIET
+  bool ovf = false;
+  clamp_to<uint16_t>(th.lease.left, ovf);
+  clamp_to<uint16_t>(th.lease.skew, ovf);
+  if (ovf) th.L.error_bits |= ERR_DIET_OVERFLOW;
+#else
+  (void)th;
+#endif
+}
+#endif
 
 #if RAFT_CHAOS
 // ---- chaos/device.py: the chaos plane of a lane ---------------------------
@@ -2575,7 +2731,12 @@ RAFT_HD void chaos_begin(const Args &a, long long i, int k, Thread &th, uint32_t
   const int rnd = sc.round + k;
   const uint32_t seed = sc.seed;
   const int *crash_at = knob(a, CH_crash_at), *restart_at = knob(a, CH_restart_at);
-  if (rnd == crash_at[i] || rnd == restart_at[i]) wipe_lane(th.L, th.c);
+  if (rnd == crash_at[i] || rnd == restart_at[i]) {
+    wipe_lane(th.L, th.c);
+#if RAFT_LEASE
+    th.lease.left = th.lease.skew = 0;  // the lease is gone; the epoch survives
+#endif
+  }
   crashed = rnd >= crash_at[i] && rnd < restart_at[i];
   const long long base = i - i % V;
   const int recv = knob(a, CH_part_recv)[i];
@@ -2715,6 +2876,15 @@ RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread
   for (int k = 0; k < kChaosProbes; ++k)
     chaos_probe(a, k)[i] = ((const int *)a.p[P_CH_PROBE_IN + k])[i];
 #endif
+#if RAFT_LEASE
+  th.lease.left = (int)lease_in<LS_lease_left>(a)[i];
+  th.lease.skew = (int)lease_in<LS_lease_skew>(a)[i];
+  lease_col<LS_lease_epoch>(a)[i] = lease_in<LS_lease_epoch>(a)[i];
+  lease_col<LS_lease_grants>(a)[i] = lease_in<LS_lease_grants>(a)[i];
+  lease_col<LS_lease_renewals>(a)[i] = lease_in<LS_lease_renewals>(a)[i];
+  lease_col<LS_lease_revocations>(a)[i] = lease_in<LS_lease_revocations>(a)[i];
+  lease_col<LS_lease_skew_revocations>(a)[i] = lease_in<LS_lease_skew_revocations>(a)[i];
+#endif
 }
 
 // round k of lane i (thread t): inbox in buffer k % 2, outbox in the other
@@ -2754,6 +2924,12 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   if (crashed) clear_ops(ops);  // a down lane takes no host ops
   fused_round_lane(th.L, th.c, inb, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev, tick);
+#if RAFT_LEASE
+  // the lease tail on the round's final state (the metrics block after it
+  // in fused.py reads no lease column): a ticking round the lane skipped
+  // is skew
+  lane_lease(a, i, th, ev.ack, (a.flags & F_TICK) && !tick);
+#endif
   chaos_dup(a, outbox(B, src, t), out, i, k);
   // the probe's flags, before the storage boundary clamps committed
   B.flag()[t] = uint8_t((th.L.state == LEADER ? 1u : 0u) |
@@ -2761,9 +2937,15 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
 #else
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev);
+#if RAFT_LEASE
+  lane_lease(a, i, th, ev.ack, false);
+#endif
 #endif
   // the carry crosses the storage boundary between rounds
   roundtrip_lane(th.L, out);
+#if RAFT_LEASE
+  lease_roundtrip(th);
+#endif
 }
 
 // after the rounds: lane i's carry, its last outbox (fabric buffer b) and
@@ -2782,15 +2964,21 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
     zero_row<SL_pri_from, RAFT_ST_I32>(a, i);
   }
 #endif
+#if RAFT_LEASE
+  lease_col<LS_lease_left>(a)[i] = (LeaseT<LS_lease_left>)th.lease.left;
+  lease_col<LS_lease_skew>(a)[i] = (LeaseT<LS_lease_skew>)th.lease.skew;
+#endif
 }
 
 RAFT_HD int *acc_row(const Block &B, int k) { return B.acc(k & 1); }
 
 // The launch's arguments from a C entry's (table order; dims: n, v, w, e,
 // f, r, kc, cta, and for the paged build pool rows per allocation segment,
-// blocks per segment and the launch's epoch, else 0, 1, 0): false unless
-// v..r are this library's Shape, the block is a multiple of v that divides
-// n and takes at most S lanes, and the segments cover the blocks.
+// blocks per segment and the launch's epoch, else 0, 1, 0; then the lease
+// margin, 0 without the lease build): false unless v..r are this
+// library's Shape, the block is a multiple of v that divides n and takes
+// at most S lanes, the segments cover the blocks, and the margin is one
+// this build takes.
 RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int flags, int lag,
                      Args &a, int &cta) {
   if (nptrs != kNumPtrs || dims[1] != V || dims[2] != W || dims[3] != E ||
@@ -2804,6 +2992,7 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
 #else
   if (dims[8] != 0 || dims[9] != 1 || dims[10] != 0) return false;
 #endif
+  if (RAFT_LEASE ? dims[11] < 0 || dims[11] > kMaxMargin : dims[11] != 0) return false;
   for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
   a.n = dims[0];
   a.kc = (int)dims[6];
@@ -2812,6 +3001,7 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
   a.pool_rows = dims[8];
   a.bps = (int)dims[9];
   a.epoch = (uint32_t)dims[10];
+  a.margin = (int)dims[11];
   cta = (int)dims[7];
   return true;
 }
@@ -3314,7 +3504,8 @@ cudaError_t enable_smem() {
 // S), then for the paged build the pool rows per allocation segment, the
 // CUDA blocks per segment and the launch's epoch (nonzero, another than
 // the last launch's on the same scratch, when a segment spans blocks),
-// else 0, 1, 0. v..r must be the Shape this library was built for.
+// else 0, 1, 0, then the lease margin (0..kMaxMargin for the lease build,
+// else 0). v..r must be the Shape this library was built for.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int raft_round(void *const *ptrs, int nptrs, const long long *dims,
                           int flags, int lag, void *stream) {
@@ -3455,6 +3646,10 @@ extern "C" int raft_round_diet() { return RAFT_DIET; }
 // 1 for the chaos build (its knob, probe and scalar pointers close the
 // table), else 0.
 extern "C" int raft_round_chaos() { return RAFT_CHAOS; }
+
+// 1 for the lease build (its column pointers, in then out, close the
+// table, and dims[11] is the margin), else 0.
+extern "C" int raft_round_lease() { return RAFT_LEASE; }
 
 // The paged build's geometry {1, WRES, PE, M}, or {0, 0, 0, 0}.
 extern "C" void raft_round_paged(long long *out) {

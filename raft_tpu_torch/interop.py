@@ -6,7 +6,9 @@ leaves, device)` builds the object back from such a list. The leaf order is
 the one `jax.tree.leaves` gives the JAX package's registered dataclasses, so
 the leaves of a `raft_tpu` carry build the matching `raft_tpu_torch`
 object, and one sha256 over the leaves (`digest`) compares the two. `None`
-fields hold no leaf, exactly as `jax.tree.leaves` skips them.
+fields hold no leaf, exactly as `jax.tree.leaves` skips them: a state
+without the lease plane has none of its seven columns, one with it carries
+them after `cfg`'s leaves, both ways and into the digest.
 
 Leaves keep their dtypes both ways, so a diet-v2 packed carry (uint16,
 int16 and int8 columns, uint8/16/32 bitset words) comes across packed.

@@ -133,3 +133,37 @@ def record_paged_stats(stats: dict) -> None:
             "Shape.pool_pages — pool holds %d pages)",
             exhausted, int(stats.get("paged_pool_pages", 0)),
         )
+
+
+# The leader-lease counters (raft_tpu/metrics/host.py:279-303). The first
+# four are host sums of the per-lane device event counters (ops/lease.py,
+# pulled by FusedCluster.lease_stats at host sync points); the last two
+# belong to the serve plane's lease fast path, which is not ported, and
+# stay 0 here:
+#   lease_grants           fresh leases granted (lease_left 0 -> window)
+#   lease_renewals         leases extended by a fresh ack quorum
+#   lease_revocations      conservative revocations (leadership loss,
+#                          transfer, confchange, or tick skew)
+#   lease_skew_revocations the skew-only subset of revocations
+#   lease_reads_served     reads answered from the lease fast path
+#   lease_reads_fallback   lease-routed reads sent back to ReadIndex
+LEASE_COUNTERS = (
+    "lease_grants",
+    "lease_renewals",
+    "lease_revocations",
+    "lease_skew_revocations",
+    "lease_reads_served",
+    "lease_reads_fallback",
+)
+
+# the process-wide mirror of the lease counters: record_lease_stats sets
+# the device-derived ones as levels and leaves the others as they are
+LEASE_EVENTS = {name: 0 for name in LEASE_COUNTERS}
+
+
+def record_lease_stats(stats: dict) -> None:
+    """Mirror one FusedCluster.lease_stats snapshot onto LEASE_EVENTS
+    (only the keys it holds)."""
+    for name in LEASE_COUNTERS:
+        if name in stats:
+            LEASE_EVENTS[name] = int(stats[name])

@@ -19,11 +19,12 @@ Of the JAX round's optional planes metrics, the diet-v2 packed carry
 (`diet=True`: state.pack_state / pack_fabric between dispatches, and
 store_carry / load_carry around every round), the paged entry log
 (`paged=True`, ops/paged.py: a resident tail plus a page pool between
-dispatches, or with `paged_inkernel=True` around every round) and the
+dispatches, or with `paged_inkernel=True` around every round), the
 chaos plane (`chaos=True`, chaos/device.py: drops, duplicates, partitions,
-tick skew and crashes around every round, and the recovery probe) are
-ported; lease, trace, tier, straddle and fused_ids are not, nor chaos
-together with paging (ROADMAP).
+tick skew and crashes around every round, and the recovery probe) and the
+leader-lease plane (`lease=True`, ops/lease.py: the lease tail of every
+round) are ported, each with the others; trace, tier, straddle and
+fused_ids are not (ROADMAP).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from raft_tpu_torch.config import Shape, resolve_device
 from raft_tpu_torch.messages import empty_batch
 from raft_tpu_torch.metrics import device as metmod
 from raft_tpu_torch.metrics.host import CounterAccumulator
+from raft_tpu_torch.ops import lease as lsmod
 from raft_tpu_torch.ops import log as lg
 from raft_tpu_torch.ops import onehot as ohm
 from raft_tpu_torch.ops import paged as pgmod
@@ -73,7 +75,7 @@ NONE = int(MT.MSG_NONE)
 
 # Planes of the JAX round that this package does not have yet.
 PLANES_NOT_PORTED = (
-    "lease", "trace", "tier", "straddle", "fused_ids",
+    "trace", "tier", "straddle", "fused_ids",
 )
 
 
@@ -545,6 +547,7 @@ def fused_round(
     auto_compact_lag: int | None = None,
     tick_mask=None,
     metrics: metmod.MetricsState | None = None,
+    lease_margin: int = lsmod.DEFAULT_MARGIN,
 ):
     """One complete synchronous round for every lane, on the fat (int32)
     state and the routed inbox. Returns (state, outbox fabric), or
@@ -552,7 +555,9 @@ def fused_round(
     of raft_tpu/ops/fused.py fused_round; comments there cite the
     reference. tick_mask: optional [N] bool from the chaos plane; a lane
     where it is False skips this round's tick (its clocks hold, and no
-    election, check-quorum or heartbeat tick fires)."""
+    election, check-quorum or heartbeat tick fires). lease_margin: the
+    lease plane's margin (ops/lease.py, an int >= 0), used when the state
+    carries the lease columns."""
     n, v = state.prs_id.shape
     e = inb.rep.ent_term.shape[-1]
     dev = state.term.device
@@ -1133,6 +1138,30 @@ def fused_round(
         target = torch.maximum(state.snap_index, state.applied - auto_compact_lag)
         state = lg.compact(state, target, lg.term_at(state, target))
 
+    # ---- leader-lease maintenance (ops/lease.py) ----
+    # Last, on the round's final role, transfer and confchange state. The
+    # renewal evidence is a joint quorum of this round's append and
+    # heartbeat acks (self included); observational, nothing feeds back.
+    if state.lease_left is not None:
+        ack_now = ar_all | hr_cell | is_self
+        ack_votes = torch.where(ack_now, int(VoteState.GRANTED), int(VoteState.PENDING)).to(I32)
+        ack_quorum = (
+            qr.joint_vote(ack_votes, state.voters_in, state.voters_out) == VoteResult.VOTE_WON
+        )
+        skipped = torch.zeros((n,), dtype=BOOL, device=dev)
+        if do_tick and tick_mask is not None:
+            skipped = ~tick_mask
+        state = dataclasses.replace(
+            state,
+            **lsmod.lease_round(
+                state,
+                is_leader=state.state == StateType.LEADER,
+                ack_quorum=ack_quorum,
+                skipped_tick=skipped,
+                margin=lease_margin,
+            ),
+        )
+
     if metrics is None:
         return state, out.fab
     # ---- end-of-round measurement ----
@@ -1225,6 +1254,7 @@ def fused_rounds(
     metrics: metmod.MetricsState | None = None,
     chaos: chmod.ChaosState | None = None,
     paged: pgmod.PagedLog | None = None,
+    lease_margin: int = lsmod.DEFAULT_MARGIN,
 ):
     """n_rounds fused rounds (raft_tpu/ops/fused.py fused_rounds without the
     straddle and trace planes). `ops` applies to the first round
@@ -1246,7 +1276,9 @@ def fused_rounds(
     outbox delivered this round) after the round, on the fat carry; with
     paging, inside it (page_in, the chaos round, page_out in the stored
     domain), as the JAX package orders them.
-    Returns (state, fab[, metrics][, chaos][, paged])."""
+
+    lease_margin: the lease plane's margin, for a state with the lease
+    columns. Returns (state, fab[, metrics][, chaos][, paged])."""
     load, store = carry_boundary(state)
     state, fab = store(state, fab)
     inkernel = paged is not None and paged_inkernel
@@ -1282,6 +1314,7 @@ def fused_rounds(
             auto_compact_lag=auto_compact_lag,
             tick_mask=tick_mask,
             metrics=metrics,
+            lease_margin=lease_margin,
         )
         out_st, out_fb = res[0], res[1]
         if chaos is not None:
@@ -1325,7 +1358,10 @@ class FusedCluster:
     (chaos/device.py; off by default, as RAFT_TPU_CHAOS is), its PRNG
     stream drawn from seed + chaos_seed (RAFT_TPU_CHAOS_SEED); its knobs
     are set with set_chaos, usually by a chaos/schedule.py ChaosRunner;
-    it composes with paged in both modes. engine: "xla" (default: the
+    it composes with paged in both modes. lease: keep the leader-lease
+    plane (ops/lease.py; off by default, as RAFT_TPU_LEASE is) with its
+    margin lease_margin (RAFT_TPU_LEASE_MARGIN, default 1, clamped at 0);
+    lease_stats sums its counters. engine: "xla" (default: the
     eager round of this module) or "pallas" (ops/pallas_round.py: K rounds
     per launch of the CUDA round kernel; tile_lanes, default
     pallas_round.default_tile, and rounds_per_call K, default 1, are
@@ -1348,6 +1384,8 @@ class FusedCluster:
         paged_inkernel: bool = False,
         chaos: bool = False,
         chaos_seed: int = 0,
+        lease: bool = False,
+        lease_margin: int = lsmod.DEFAULT_MARGIN,
         engine: str | None = None,
         tile_lanes: int | None = None,
         rounds_per_call: int | None = None,
@@ -1380,9 +1418,10 @@ class FusedCluster:
         self.state = slim_state(
             init_state(
                 self.shape, ids, peers, is_learner, seed=seed, cfg=lane_cfg,
-                device=self.device,
+                device=self.device, lease=lease,
             )
         )
+        self.lease_margin = lsmod.clamp_margin(lease_margin)
         self.fab = slim_fabric(
             empty_fabric(n, n_voters, self.shape.max_msg_entries, self.device)
         )
@@ -1448,6 +1487,7 @@ class FusedCluster:
             metrics=self.metrics,
             chaos=self.chaos,
             paged=self.paged,
+            lease_margin=self.lease_margin,
         )
         ops = self._no_ops if ops is None else ops
         if self.engine == "pallas":
@@ -1493,7 +1533,8 @@ class FusedCluster:
             # builds the library
             cta = plr.check_paged_block(self.shape, t, chaos=chaos)
             resident = round_cuda.resident_blocks(plr.shape_dims(self.shape), cta, self.device,
-                                                  self._diet, (plan.w_res, plan.pe, plan.m), chaos)
+                                                  self._diet, (plan.w_res, plan.pe, plan.m), chaos,
+                                                  lease=self.state.lease_left is not None)
             plr.check_paged_block(self.shape, t, cta, resident=resident, chaos=chaos)
             if t > cta:
                 self._segments = round_cuda.Segments(n // cta, self.device)
@@ -1658,8 +1699,10 @@ class FusedCluster:
             int(m.lat_sum), int(m.round_ctr),
         )
         snap = self._metrics_acc.snapshot()
-        # the paged pool's pressure rides the same snapshot
+        # the paged pool's pressure and the lease totals ride the same
+        # snapshot
         snap["counters"].update(self.paged_stats() or {})
+        snap["counters"].update(self.lease_stats() or {})
         return snap
 
     def paged_stats(self) -> dict | None:
@@ -1673,6 +1716,20 @@ class FusedCluster:
 
         stats = pgmod.paged_stats(self.paged)
         record_paged_stats(stats)
+        return stats
+
+    def lease_stats(self) -> dict | None:
+        """Host sums of the per-lane lease event counters (ops/lease.py
+        LEASE_COUNTER_FIELDS; None without the lease plane), mirrored onto
+        the host plane (metrics/host.py LEASE_COUNTERS). The counters are
+        int32 in every layout. One device read: call it at host sync
+        points, not per dispatch."""
+        if self.state.lease_left is None:
+            return None
+        from raft_tpu_torch.metrics.host import record_lease_stats
+
+        stats = lsmod.counter_sums([self.state])
+        record_lease_stats(stats)
         return stats
 
     def leader_lanes(self) -> np.ndarray:

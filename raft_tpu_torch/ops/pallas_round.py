@@ -34,6 +34,11 @@ Contract with ops/fused.py fused_rounds, as in the JAX package:
   are absolute, so only the last round's row, summed over blocks, lands
   in the carry (`fold_chaos`).
 
+- Lease (ops/lease.py): a state with the lease columns carries them
+  through the launch, and every round ends in the lease tail with the
+  engine's margin (`lease_margin`, a launch argument, so one build serves
+  every margin); on the card the kernel's lease build runs
+  (round_cuda.target(lease=True)), composed with each build above.
 - Diet-v2: a packed carry (state.is_packed) enters, crosses every
   boundary between in-kernel rounds and leaves packed, through the
   fused.store_carry / load_carry pair the eager engine crosses; on the
@@ -215,7 +220,7 @@ def check_paged_block(shape, tile_lanes: int, cta: int | None = None, *,
 def round_kernel_ref(
     state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops=True,
     ops_round0_only=True, do_tick=True, auto_propose=False, auto_compact_lag=None,
-    paged=None, chaos=None, seg_lanes=None,
+    paged=None, chaos=None, seg_lanes=None, lease_margin=1,
 ):
     """What one launch of csrc/round.cu computes, in plain PyTorch: kc
     rounds of route_fabric -> fused_round on the carry, its storage
@@ -232,9 +237,11 @@ def round_kernel_ref(
     launch's scalars) chaos.begin_round after routing and end_round after
     each round, over global lanes, as :616-700 order them, and each row's
     chaos slots the block's recounts; with both, inside the paging, as
-    :589-730. Returns (state, fab, sampler, partials [kc, n / cta,
-    PARTIAL_WIDTH] or None), then the PagedLog when paged, then the probe
-    columns (chaos.PROBES) when chaos, as round_cuda.round_call does."""
+    :589-730. A state with the lease columns runs the lease tail of
+    every round with `lease_margin`. Returns (state, fab, sampler,
+    partials [kc, n / cta, PARTIAL_WIDTH] or None), then the PagedLog
+    when paged, then the probe columns (chaos.PROBES) when chaos, as
+    round_cuda.round_call does."""
     n = state.term.shape[0]
     dev = state.term.device
     rows = n // cta
@@ -272,7 +279,7 @@ def round_kernel_ref(
         res = fmod.fused_round(
             st, inb, o, mute, peer_mute=peer_mute, do_tick=do_tick,
             auto_propose=auto_propose, auto_compact_lag=auto_compact_lag,
-            tick_mask=tick_mask, metrics=mt,
+            tick_mask=tick_mask, metrics=mt, lease_margin=lease_margin,
         )
         st2, fb2 = res[0], res[1]
         row = []
@@ -360,13 +367,15 @@ def pallas_rounds(
     chaos: chmod.ChaosState | None = None,
     paged: pgmod.PagedLog | None = None,
     segments: round_cuda.Segments | None = None,
+    lease_margin: int = 1,
 ):
     """n_rounds fused rounds as launches of K = rounds_per_call rounds each,
     plus one remainder launch when K does not divide n_rounds. Same
     contract and trajectory as ops/fused.py fused_rounds (module doc).
     segments: the segment barrier's scratch of in-kernel paging on the
     card, required there when a tile spans CUDA blocks (FusedCluster keeps
-    one). Returns (state, fab[, metrics][, chaos][,
+    one). lease_margin: the lease plane's margin, for a state with the
+    lease columns. Returns (state, fab[, metrics][, chaos][,
     paged])."""
     validate_round_plan(rounds_per_call)
     state, fab = fmod.carry_boundary(state)[1](state, fab)
@@ -405,7 +414,7 @@ def pallas_rounds(
             ops_round0_only=ops_first_round_only,
             do_tick=do_tick, auto_propose=auto_propose,
             auto_compact_lag=auto_compact_lag, paged=paged if inkernel else None,
-            chaos=chaos, seg_lanes=tile_lanes, segments=segments,
+            chaos=chaos, seg_lanes=tile_lanes, segments=segments, lease_margin=lease_margin,
         )
         state, fab, sampler, parts = out[:4]
         if inkernel:

@@ -13,7 +13,9 @@ the diet-v2 build (a packed carry, state.is_packed) in
 `round_kernel_paged_diet`, those of the chaos builds (a `chaos=`
 ChaosState) in `round_kernel_chaos` and `round_kernel_chaos_diet`, and
 those of the builds with both in `round_kernel_chaos_paged` and
-`round_kernel_chaos_paged_diet`.
+`round_kernel_chaos_paged_diet`, and those of each build's lease twin (a
+state with the lease columns) in `round_kernel_lease*`
+(`round_kernel_lease_chaos_paged_diet` with every flag).
 
 | kernel                        | replaces (raft_tpu/ops/pallas_round.py)      |
 | round_kernel                  | make_call(kc).kernel :564, pl.pallas_call    |
@@ -29,6 +31,10 @@ those of the builds with both in `round_kernel_chaos_paged` and
 | round_kernel_chaos_paged      | the chaos branch composed with in-kernel     |
 |                               | paging, :589-730                             |
 | round_kernel_chaos_paged_diet | the same on the packed carry                 |
+| round_kernel_lease*           | each build above with its lease branch: the  |
+|                               | lease leaves of the carry :486 and           |
+|                               | fused_round's lease tail (raft_tpu/ops/      |
+|                               | fused.py:1470-1497, run from :676)           |
 
 The argument packing is generated from the dataclass field order of
 RaftState, LaneConfig, Fabric and LocalOps. csrc/round.cu carries the same
@@ -63,6 +69,12 @@ ChaosState's own 0-d tensors), after the table's other pointers; the
 partials row is written with metrics or chaos on. With paging too, the
 build takes both (-DRAFT_CHAOS=1 -DRAFT_PAGED=1), the paged pointers
 first.
+
+Lease (ops/lease.py, a state whose lease columns are set): the lease build
+(-DRAFT_LEASE=1, with any of the flags above) takes the seven lease
+columns (RAFT_LEASE_FIELDS, uint16 for the three of RAFT_LEASE_DIET in a
+diet build) in and then out, after every other pointer, and the margin as
+the twelfth dimension, so one build serves every margin.
 """
 
 from __future__ import annotations
@@ -78,6 +90,7 @@ import torch
 from raft_tpu_torch import build
 from raft_tpu_torch.chaos import device as chmod
 from raft_tpu_torch.ops.fused import Fabric, LocalOps
+from raft_tpu_torch.ops.lease import LEASE_PACK_U16, LEASE_STATE_FIELDS
 from raft_tpu_torch.ops.paged import LEAVES, LOG_COLS
 from raft_tpu_torch.ops.quorum_cuda import Kernel, _check
 from raft_tpu_torch.state import LaneConfig, RaftState, is_packed
@@ -95,12 +108,15 @@ SCAN_SLOTS = MAX_CTA // 32 + 4  # csrc/round.cu kScanSlots: warp totals, id, seg
 
 _P = ctypes.c_void_p
 _ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
+_BASE_NAMES = ("round_kernel", "round_kernel_diet", "round_kernel_paged",
+               "round_kernel_paged_diet", "round_kernel_chaos", "round_kernel_chaos_diet",
+               "round_kernel_chaos_paged", "round_kernel_chaos_paged_diet")
 KERNELS = {
     name: Kernel(name, "raft_round", _ROUND_ARGS, lib="round")
-    for name in ("round_kernel", "round_kernel_diet", "round_kernel_paged",
-                 "round_kernel_paged_diet", "round_kernel_chaos", "round_kernel_chaos_diet",
-                 "round_kernel_chaos_paged", "round_kernel_chaos_paged_diet")
+    for name in _BASE_NAMES + tuple(n.replace("round_kernel", "round_kernel_lease", 1)
+                                    for n in _BASE_NAMES)
 }
+MAX_MARGIN = 1 << 20  # csrc/round.cu kMaxMargin
 _SIZE = {"I32": 4, "U32": 4, "I16": 2, "I8": 1, "BOOL": 1, "U16": 2, "U8": 1}
 _RINGS = ("WIN", "INFL", "READ", "READ_PEER")
 # the state leaves the round never touches: they go from input to output
@@ -165,12 +181,26 @@ def chaos_rows() -> dict[str, tuple[tuple[str, str, str], ...]]:
 
 
 @functools.cache
+def lease_rows(diet: bool = False) -> tuple[tuple[str, str, str], ...]:
+    """csrc/round.cu's lease columns ((name, dtype, shape), ...) in pointer
+    order, as the slim carry stores them, or with diet as the diet-v2
+    packed carry does."""
+    text = (build.CSRC / "round.cu").read_text()
+    rows = _table(text, "RAFT_LEASE_FIELDS")
+    if diet:
+        packed = {row[0]: row for row in _table(text, "RAFT_LEASE_DIET")}
+        rows = tuple(packed.get(row[0], row) for row in rows)
+    return rows
+
+
+@functools.cache
 def dataclass_names() -> dict[str, tuple[str, ...]]:
     """The same groups from the dataclasses, what the packing follows;
     Fabric leaves as `channel_field` (`self_` -> `self`)."""
     hints = typing.get_type_hints(Fabric)
     return {
-        "STATE": tuple(f.name for f in dataclasses.fields(RaftState) if f.name != "cfg"),
+        "STATE": tuple(f.name for f in dataclasses.fields(RaftState)
+                       if f.name != "cfg" and f.name not in LEASE_STATE_FIELDS),
         "CFG": tuple(f.name for f in dataclasses.fields(LaneConfig)),
         "FABRIC": tuple(
             f"{chan.name.rstrip('_')}_{f.name}"
@@ -204,6 +234,16 @@ def _check_layout() -> None:
         if tuple(name for name, _, _ in rows) != names or any(dt != "I32" for _, dt, _ in rows):
             raise RuntimeError(
                 f"csrc/round.cu RAFT_CHAOS_{g} differs from chaos/device.py {g}: {rows}"
+            )
+    fields = [f.name for f in dataclasses.fields(RaftState)]
+    after_cfg = tuple(fields[fields.index("cfg") + 1:])
+    for diet, packed in ((False, ()), (True, LEASE_PACK_U16)):
+        rows = lease_rows(diet)
+        want = tuple((name, "U16" if name in packed else "I32", "LANE") for name in after_cfg)
+        if rows != want:
+            raise RuntimeError(
+                f"csrc/round.cu RAFT_LEASE_FIELDS (diet={diet}) differs from RaftState's "
+                f"lease columns: {rows} != {want}"
             )
 
 
@@ -257,9 +297,9 @@ def paged_plan(paged) -> tuple[int, int, int]:
     return paged.w_res, paged.pool_term.shape[1], paged.pt.shape[1]
 
 
-def kernel_name(diet: bool, paged: bool, chaos: bool = False) -> str:
-    return ("round_kernel" + ("_chaos" if chaos else "") + ("_paged" if paged else "")
-            + ("_diet" if diet else ""))
+def kernel_name(diet: bool, paged: bool, chaos: bool = False, lease: bool = False) -> str:
+    return ("round_kernel" + ("_lease" if lease else "") + ("_chaos" if chaos else "")
+            + ("_paged" if paged else "") + ("_diet" if diet else ""))
 
 
 def shape_name(d: dict) -> str:
@@ -283,12 +323,12 @@ def stride(cta: int) -> int:
     return -(-cta // 32) * 32
 
 
-def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
-           ) -> build.Target:
+def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
+           lease: bool = False) -> build.Target:
     """The library of the kernel for Shape d and blocks of cta lanes, of
     the diet-v2 build (-DRAFT_DIET=1) with diet, of the paged build with
-    plan = (W_res, PE, M), and of the chaos build (-DRAFT_CHAOS=1) with
-    chaos."""
+    plan = (W_res, PE, M), of the chaos build (-DRAFT_CHAOS=1) with chaos,
+    and of the lease build (-DRAFT_LEASE=1) with lease."""
     paged = ()
     if plan is not None:
         paged = (("RAFT_PAGED", 1),) + tuple(zip(("RAFT_WRES", "RAFT_PE", "RAFT_M"), plan))
@@ -296,7 +336,8 @@ def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
         "round",
         tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),)
         + ((("RAFT_DIET", 1),) if diet else ()) + paged
-        + ((("RAFT_CHAOS", 1),) if chaos else ()),
+        + ((("RAFT_CHAOS", 1),) if chaos else ())
+        + ((("RAFT_LEASE", 1),) if lease else ()),
     )
 
 
@@ -364,12 +405,12 @@ class Segments:
 
 
 def occupancy(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
-              device=None) -> dict:
+              device=None, lease: bool = False) -> dict:
     """csrc/round.cu raft_round_info for the library of Shape d and blocks
     of cta lanes (built if needed): shared memory of a block, resident
     blocks per SM, registers and local (stack) bytes per thread, as the
     runtime reports them."""
-    fn = build.load(library(d, cta, diet, plan, chaos)).raft_round_info
+    fn = build.load(library(d, cta, diet, plan, chaos, lease)).raft_round_info
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
@@ -381,23 +422,25 @@ def occupancy(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = Fa
 
 
 def resident_blocks(d: dict, cta: int, device, diet: bool = False, plan=None,
-                    chaos: bool = False) -> int:
+                    chaos: bool = False, lease: bool = False) -> int:
     """CUDA blocks of cta lanes of the library for Shape d that the card
     holds at once: resident blocks per SM (occupancy) times the SMs."""
-    per_sm = occupancy(d, cta, diet, plan, chaos, device)["blocks_per_sm"]
+    per_sm = occupancy(d, cta, diet, plan, chaos, device, lease)["blocks_per_sm"]
     return int(per_sm) * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
          ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None, chaos=None,
-         seg_lanes=None, segments=None):
+         seg_lanes=None, segments=None, lease_margin=1):
     """Check every leaf and allocate the outputs; returns (pointer list,
     dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
     and, given `paged`, the PagedLog out, given `chaos`, the probe columns
-    out. seg_lanes: the paged build's allocation segment (default one
+    out; a state with the lease columns has them out in its `state`.
+    seg_lanes: the paged build's allocation segment (default one
     CUDA block); segments: the barrier's scratch (`Segments`), required
     when a segment spans blocks: its owner (the cluster) keeps it across
-    launches, so that a launch allocates and zeroes none."""
+    launches, so that a launch allocates and zeroes none. lease_margin:
+    the lease build's margin (0..MAX_MARGIN)."""
     _check_layout()
     n = state.term.shape[0]
     d = dims_of(state, fab, v, paged)
@@ -494,18 +537,32 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     pg_out = [None if x is None else torch.empty_like(x) for x in pg_in]
     ptrs += [ptr(x) for x in pg_in + pg_out] + [ptr(seg_words)]
     probe_out = []
-    if chaos is not None:  # the chaos build's pointers close the table
+    if chaos is not None:  # the chaos build's pointers come next
         probe_out = [torch.empty_like(getattr(chaos, p)) for p in chmod.PROBES]
         ptrs += [ptr(x) for x in ch_in + probe_out]
+    lease = state.lease_left is not None
+    margin = 0
+    if lease:  # the lease build's columns close the table, in then out
+        if not 0 <= lease_margin <= MAX_MARGIN:
+            raise ValueError(f"lease_margin must be in 0..{MAX_MARGIN}, got {lease_margin}")
+        margin = int(lease_margin)
+        ls_in = [getattr(state, name) for name in LEASE_STATE_FIELDS]
+        for (name, dt, kind), x in zip(lease_rows(is_packed(state)), ls_in):
+            _check(f"state.{name}", x, DTYPES[dt], _shape(kind, n, v, d), dev)
+        ls_out = [torch.empty_like(x) for x in ls_in]
+        ptrs += [ptr(x) for x in ls_in + ls_out]
     flags = (
         (F_MUTE if mute is not None else 0) | (F_METRICS if metrics else 0)
         | (F_TICK if do_tick else 0) | (F_AUTO_PROPOSE if auto_propose else 0)
         | (F_LAG if auto_compact_lag is not None else 0) | (F_OPS if apply_ops else 0)
         | (F_OPS_ROUND0 if ops_round0_only else 0)
     )
-    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta, pool_rows, bps, epoch]
+    dims = [n, v, d["w"], d["e"], d["f"], d["r"], kc, cta, pool_rows, bps, epoch, margin]
+    st_new = _state_from_leaves(state, st_out)
+    if lease:
+        st_new = dataclasses.replace(st_new, **dict(zip(LEASE_STATE_FIELDS, ls_out)))
     outputs = (
-        _state_from_leaves(state, st_out),
+        st_new,
         _fab_from_leaves(fab, fab_out),
         tuple(samp_out) if metrics else None,
         parts,
@@ -524,7 +581,7 @@ def as_c_args(ptrs, dims):
 def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
                apply_ops=True, ops_round0_only=True, do_tick=True,
                auto_propose=False, auto_compact_lag=None, paged=None, chaos=None,
-               seg_lanes=None, segments=None):
+               seg_lanes=None, segments=None, lease_margin=1):
     """kc rounds in one launch. state/fab: the slim carry, or the diet-v2
     packed carry (the diet build of the kernel runs it); sampler:
     (samp_index, samp_round) with metrics on, else None; round_ctr: the
@@ -534,35 +591,37 @@ def round_call(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta,
     the barrier's scratch, required when it spans blocks) pages
     in, runs the rounds and pages out over its own sub-pool; chaos: the
     ChaosState (chaos/device.py) whose faults the rounds apply, from its
-    round, heal_round and seed. Returns (state, fab, sampler, partials
+    round, heal_round and seed; a state with the lease columns runs the
+    lease build with lease_margin. Returns (state, fab, sampler, partials
     [kc, n / cta, PARTIAL_WIDTH] int32 or None), then the PagedLog when
     paged, then the probe columns (chaos.PROBES) when chaos."""
     kw = dict(v=v, kc=kc, cta=cta, apply_ops=apply_ops, ops_round0_only=ops_round0_only,
               do_tick=do_tick, auto_propose=auto_propose,
-              auto_compact_lag=auto_compact_lag, paged=paged, chaos=chaos, seg_lanes=seg_lanes)
+              auto_compact_lag=auto_compact_lag, paged=paged, chaos=chaos, seg_lanes=seg_lanes,
+              lease_margin=lease_margin)
     if state.term.device.type == "cpu":
         from raft_tpu_torch.ops.pallas_round import round_kernel_ref
 
         return round_kernel_ref(state, fab, ops, mute, sampler, round_ctr, **kw)
     ptrs, dims, flags, lag, outputs = pack(state, fab, ops, mute, sampler, round_ctr,
                                            segments=segments, **kw)
-    diet = is_packed(state)
+    diet, lease = is_packed(state), state.lease_left is not None
     plan = paged_plan(paged) if paged is not None else None
-    t = library(dims_of(state, fab, v, paged), cta, diet, plan, chaos is not None)
+    t = library(dims_of(state, fab, v, paged), cta, diet, plan, chaos is not None, lease)
     arr, nptr, cdims = as_c_args(ptrs, dims)
-    kernel = KERNELS[kernel_name(diet, paged is not None, chaos is not None)]
+    kernel = KERNELS[kernel_name(diet, paged is not None, chaos is not None, lease)]
     kernel.launch(state.term.device, arr, nptr, cdims, flags, lag, target=t)
     return outputs
 
 
-def library(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
-            ) -> build.Target:
+def library(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
+            lease: bool = False) -> build.Target:
     """Build (once) the kernel for Shape d and blocks of cta lanes (the
     diet-v2 build with diet, the paged build with plan = (W_res, PE, M),
-    the chaos build with chaos); raises naming the Shape when its library
-    does not build. Returns the build target."""
-    t = target(d, cta, diet, plan, chaos)
-    name = kernel_name(diet, plan is not None, chaos)
+    the chaos build with chaos, the lease build with lease); raises naming
+    the Shape when its library does not build. Returns the build target."""
+    t = target(d, cta, diet, plan, chaos, lease)
+    name = kernel_name(diet, plan is not None, chaos, lease)
     try:
         KERNELS[name].fn(t)
     except RuntimeError as e:

@@ -26,12 +26,14 @@ class BlockedFusedCluster:
     """The driving API mirrors FusedCluster; per-lane injections address
     lanes in global order (block i owns lanes [i*B*V, (i+1)*B*V)). Runs on
     `cuda` unless `device` names another device. diet / paged /
-    paged_inkernel / chaos / chaos_seed / engine / tile_lanes /
-    rounds_per_call pass through to every block (FusedCluster); a paged
+    paged_inkernel / chaos / chaos_seed / lease / lease_margin / engine /
+    tile_lanes / rounds_per_call pass through to every block
+    (FusedCluster); a paged
     Shape's plan is checked for one block's lanes before any block
     allocates, and each block pages over its own segments. Chaos columns
     are set and read in global lane order (set_chaos, chaos_columns), with
-    paging as without."""
+    paging as without. lease_stats sums the blocks' lease counters, and the
+    merged metrics snapshot carries them."""
 
     def __init__(
         self,
@@ -181,7 +183,21 @@ class BlockedFusedCluster:
         for b, row in zip(self.blocks, rows):
             b._metrics_acc.pull(row[:nc], row[nc:-2], row[-2], row[-1])
             snaps.append(b._metrics_acc.snapshot())
-        return merge_snapshots(snaps)
+        snap = merge_snapshots(snaps)
+        snap["counters"].update(self.lease_stats() or {})
+        return snap
+
+    def lease_stats(self) -> dict | None:
+        """The blocks' lease counters (FusedCluster.lease_stats) summed,
+        with one device read; None without the lease plane."""
+        if self.blocks[0].state.lease_left is None:
+            return None
+        from raft_tpu_torch.metrics.host import record_lease_stats
+        from raft_tpu_torch.ops.lease import counter_sums
+
+        stats = counter_sums([b.state for b in self.blocks])
+        record_lease_stats(stats)
+        return stats
 
     def paged_stats(self) -> dict | None:
         """The blocks' paged_stats summed (pool pages included); None

@@ -28,6 +28,7 @@ from raft_tpu_torch.config import (
     DEFAULT_MAX_UNCOMMITTED_SIZE,
     Shape,
 )
+from raft_tpu_torch.ops.lease import LEASE_PACK_U16, LEASE_STATE_FIELDS
 from raft_tpu_torch.types import StateType
 
 I32 = torch.int32
@@ -138,6 +139,17 @@ class RaftState:
 
     cfg: LaneConfig
 
+    # --- leader-lease plane (ops/lease.py; FusedCluster(lease=True)) ---
+    # Optional columns, after cfg as in the JAX state: None, and no leaf,
+    # unless the plane is on. lease_left is a countdown in rounds.
+    lease_left: Any = None  # [N] rounds of lease remaining (0 = none)
+    lease_epoch: Any = None  # [N] grant generation (wraps at 2^15)
+    lease_skew: Any = None  # [N] skipped ticks observed while leased
+    lease_grants: Any = None  # [N] monotone event counters (host sums)
+    lease_renewals: Any = None  # [N]
+    lease_revocations: Any = None  # [N]
+    lease_skew_revocations: Any = None  # [N]
+
     @property
     def first_index(self):
         """reference: log.go firstIndex == snapshot index + 1."""
@@ -193,7 +205,9 @@ def fat_state(state: RaftState) -> RaftState:
 # automatic rebase keeps them under DIET_REBASE_AT); canonical-id columns
 # int8; log_bytes int16 under Shape.max_entry_bytes. A value out of its
 # packed range clamps and sets ERR_DIET_OVERFLOW in error_bits, which is
-# never packed. The JAX lease columns are not in this port's RaftState.
+# never packed. The lease plane's lane columns lease_left, lease_epoch and
+# lease_skew pack as uint16 (bounded by election_tick and EPOCH_WRAP); its
+# event counters stay int32.
 
 ERR_DIET_OVERFLOW = 64
 # the paged entry log's pool ran out at page_out (ops/paged.py): the lane
@@ -293,6 +307,9 @@ def pack_state(state: RaftState) -> RaftState:
         narrow(f, torch.int16)
     for f in PACK_BITSET:
         upd[f] = pack_bits(getattr(state, f), bd)
+    if state.lease_left is not None:
+        for f in LEASE_PACK_U16:
+            narrow(f, torch.uint16)
     upd["error_bits"] = state.error_bits | torch.where(ovf, ERR_DIET_OVERFLOW, 0).to(I32)
     # make_lane_config enforces these bounds: the casts are exact
     upd["cfg"] = dataclasses.replace(
@@ -311,6 +328,9 @@ def unpack_state(state: RaftState) -> RaftState:
     upd = {f: getattr(state, f).to(I32) for f in PACK_U16 + PACK_I8 + PACK_I16}
     for f in PACK_BITSET:
         upd[f] = unpack_bits(getattr(state, f), v)
+    if state.lease_left is not None:
+        for f in LEASE_PACK_U16:
+            upd[f] = getattr(state, f).to(I32)
     upd["cfg"] = dataclasses.replace(
         state.cfg, **{k: getattr(state.cfg, k).to(I32) for k in CFG_PACK}
     )
@@ -387,8 +407,10 @@ def wipe_volatile(state: RaftState, mask) -> RaftState:
     the snapshot origin survive; every volatile field resets to the
     fresh-boot follower defaults of init_state. The lane's LCG advances one
     step and its election timeout is redrawn from it; error_bits are kept
-    (they are the test oracle, not raft state). mask: [N] bool. The JAX
-    state's lease fields are not in this port's RaftState."""
+    (they are the test oracle, not raft state). A lane's lease is gone
+    (lease_left and lease_skew zeroed); lease_epoch survives, so that a
+    new grant never repeats an epoch a reader saw before the crash, and
+    the lease counters survive like error_bits. mask: [N] bool."""
     m = mask
     mv = mask[:, None]
     mvf = mask[:, None, None]
@@ -405,8 +427,12 @@ def wipe_volatile(state: RaftState, mask) -> RaftState:
         draw_timeout(rng2, state.cfg.election_tick).to(state.randomized_election_timeout.dtype),
         state.randomized_election_timeout,
     )
+    lease_upd = {}
+    if state.lease_left is not None:
+        lease_upd = dict(lease_left=z(state.lease_left), lease_skew=z(state.lease_skew))
     return dataclasses.replace(
         state,
+        **lease_upd,
         state=full(state.state, int(StateType.FOLLOWER)),
         lead=z(state.lead),
         lead_transferee=z(state.lead_transferee),
@@ -456,12 +482,14 @@ def init_state(
     cfg: LaneConfig | None = None,
     *,
     device,
+    lease: bool = False,
 ) -> RaftState:
     """Fresh boot state: every lane a term-0 follower with an empty log
     (reference: raft.go:432-477; raft_tpu/state.py init_state).
 
     ids: [N] this-node raft ids; peer_ids: [N, V] membership, 0-padded, own
-    id included; peer_is_learner: [N, V] bool learner mask."""
+    id included; peer_is_learner: [N, V] bool learner mask. lease: carry
+    the lease plane's columns (ops/lease.py), each its own zero buffer."""
     n, v, w = shape.n, shape.v, shape.w
     f = shape.max_inflight
     r = shape.max_read_index
@@ -555,4 +583,5 @@ def init_state(
         rs_count=zeros(),
         error_bits=zeros(),
         cfg=cfg,
+        **({f: zeros() for f in LEASE_STATE_FIELDS} if lease else {}),
     )

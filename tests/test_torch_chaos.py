@@ -472,8 +472,22 @@ def test_schedule_columns_and_segments_match_jax():
         tsched.ChaosSchedule(4, 3).drop(groups=[4], at=0, duration=1, prob=0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsched.ChaosSchedule(4, 3).wire_partition([(0, 1)], at=0, duration=1)
-    with pytest.raises(NotImplementedError, match="lease"):
-        tsched.ChaosSchedule(4, 3).lease_skew_storm(groups=[0], at=0, bursts=1)
+    # lease_skew_storm builds the same skew waves as JAX's: events,
+    # segments and the columns at every segment start
+    storms = [mod.ChaosSchedule(g, v).lease_skew_storm(groups=range(5, 40), at=3, bursts=3,
+                                                       duration=4, gap=2, prob=0.6)
+              for mod in (jsched, tsched)]
+    assert len(storms[1].events) == len(storms[0].events) == 3
+    for ej, et in zip(storms[0].events, storms[1].events):
+        assert (ej.kind, ej.start, ej.end, tuple(ej.members), ej.prob) == (
+            et.kind, et.start, et.end, tuple(et.members), et.prob)
+        assert list(ej.groups) == et.groups.tolist()
+    segs = storms[1].segments(settle=4)
+    assert segs == storms[0].segments(settle=4)
+    for a, _ in segs:
+        want, got = storms[0].columns(a), storms[1].columns(a)
+        for k in want:
+            assert want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k]), (a, k)
 
 
 def test_blocked_set_chaos_slices_global_columns():

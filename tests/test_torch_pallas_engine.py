@@ -208,7 +208,8 @@ def test_pack_checks_every_leaf():
     # the table, null when unpaged
     assert len(ptrs) == 58 + 13 + 29 + 8 + 4 + 58 + 29 + 3 + 2 * 8 + 1
     assert ptrs[-17:] == [None] * 17
-    assert dims == [N, V, 8, 2, 2, 2, 2, TILE, 0, 1, 0] and lag == 4
+    # the last dimension is the lease margin, 0 without the lease columns
+    assert dims == [N, V, 8, 2, 2, 2, 2, TILE, 0, 1, 0, 0] and lag == 4
     assert flags == rc.F_MUTE | rc.F_METRICS | rc.F_TICK | rc.F_AUTO_PROPOSE | rc.F_LAG | rc.F_OPS | rc.F_OPS_ROUND0
     assert outputs[3].shape == (2, N // TILE, plr.PARTIAL_WIDTH)
     fat = tfused.fat_fabric(c.fab)
@@ -222,6 +223,20 @@ def test_pack_checks_every_leaf():
         rc.pack(bad, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **kw)
     with pytest.raises(ValueError, match="V <= 8"):
         rc.pack(c.state, c.fab, c._no_ops, c.mute, samp, m.round_ctr, **dict(kw, v=9))
+    # the lease columns close the table, in then out, and the margin is a
+    # dimension; each column is checked like any leaf
+    cl = tfused.FusedCluster(G, V, shape=_shape(), device="cpu", lease=True)
+    ptrs_l, dims_l, _, _, out_l = rc.pack(cl.state, cl.fab, cl._no_ops, cl.mute, samp,
+                                          m.round_ctr, lease_margin=3, **kw)
+    assert len(ptrs_l) == len(ptrs) + 14 and dims_l == dims[:-1] + [3]
+    assert ptrs_l[-14:-7] == [getattr(cl.state, f).data_ptr() for f in rc.LEASE_STATE_FIELDS]
+    assert ptrs_l[-7:] == [getattr(out_l[0], f).data_ptr() for f in rc.LEASE_STATE_FIELDS]
+    bad = dataclasses.replace(cl.state, lease_epoch=cl.state.lease_epoch.to(torch.int16))
+    with pytest.raises(TypeError, match="state.lease_epoch"):
+        rc.pack(bad, cl.fab, cl._no_ops, cl.mute, samp, m.round_ctr, **kw)
+    with pytest.raises(ValueError, match="lease_margin"):
+        rc.pack(cl.state, cl.fab, cl._no_ops, cl.mute, samp, m.round_ctr,
+                lease_margin=rc.MAX_MARGIN + 1, **kw)
 
 
 @pytest.mark.parametrize("dim,shape_kw,match", [

@@ -17,9 +17,11 @@ chaos builds (-DRAFT_CHAOS=1, slim and diet) under drops, duplicates, an
 asymmetric partition, tick skew, a crash window and an instant restart
 inside a launch, and a heal round armed inside one; and the chaos builds
 with paging (-DRAFT_CHAOS=1 -DRAFT_PAGED=1, slim and diet) under the same
-faults over two-block segments. Exact equality on every carry leaf,
-partials row, PagedLog leaf and chaos probe column. Skips without a C++
-compiler.
+faults over two-block segments; and its lease builds (-DRAFT_LEASE=1 alone,
+and with every other flag) under live leases, tick skew, a crash edge, an
+epoch at 32,767 and counters at the int32 edge, at margins 0 to 2. Exact
+equality on every carry leaf (the lease columns included), partials row,
+PagedLog leaf and chaos probe column. Skips without a C++ compiler.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from raft_tpu_torch import build, interop
 from raft_tpu_torch.chaos.device import NEVER, probability
 from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
+from raft_tpu_torch.ops.lease import EPOCH_WRAP, LEASE_STATE_FIELDS
 from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
@@ -77,6 +80,9 @@ PAGED_WEFR = (16, 2, 2, 2)
 PAGED_PLAN = (8, 4, 4)
 # the chaos builds' (v, (w, e, f, r)), slim and diet
 CHAOS_CASE = (3, BASE)
+# the lease builds: -DRAFT_LEASE=1 alone, and with every other flag
+LEASE_CASES = {"lease": (3, BASE, False, None, False),
+               "lease_chaos_paged_diet": (3, PAGED_WEFR, True, PAGED_PLAN, True)}
 
 
 def _await_build(so, deadline: float = 600.0):
@@ -115,9 +121,9 @@ def host_lib(tmp_path_factory):
     libs = {}
 
     def start(key):
-        v, wefr, diet, plan, chaos = key
+        v, wefr, diet, plan, chaos, lease = key
         d = dict(zip("vwefr", (v, *wefr)))
-        t = rc.target(d, 2 * v, diet, plan, chaos)
+        t = rc.target(d, 2 * v, diet, plan, chaos, lease)
         so = root / f"{t.key}.so"
         procs[key] = (None, so)
         try:
@@ -130,15 +136,19 @@ def host_lib(tmp_path_factory):
              "-Wno-unknown-pragmas", *t.flags, "-x", "c++", str(build.CSRC / "round.cu"),
              "-o", base + ".tmp"]), so)
 
-    def get(v, wefr=BASE, diet=False, plan=None, chaos=False):
-        key = (v, wefr, diet, plan, chaos)
+    def get(v, wefr=BASE, diet=False, plan=None, chaos=False, lease=False):
+        key = (v, wefr, diet, plan, chaos, lease)
         if key not in libs:
             if not procs:
-                for k in dict.fromkeys([(cv, cw, False, None, False) for cv, _, cw in CASES]
-                                       + [(cv, cw, True, None, False) for cv, _, cw in DIET_CASES]
-                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, False) for d in (False, True)]
-                                       + [(*CHAOS_CASE, d, None, True) for d in (False, True)]
-                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, True) for d in (False, True)]):
+                for k in dict.fromkeys([(cv, cw, False, None, False, False) for cv, _, cw in CASES]
+                                       + [(cv, cw, True, None, False, False)
+                                          for cv, _, cw in DIET_CASES]
+                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, False, False)
+                                          for d in (False, True)]
+                                       + [(*CHAOS_CASE, d, None, True, False) for d in (False, True)]
+                                       + [(3, PAGED_WEFR, d, PAGED_PLAN, True, False)
+                                          for d in (False, True)]
+                                       + [(*case, True) for case in LEASE_CASES.values()]):
                     start(k)
             if key not in procs:
                 start(key)
@@ -154,6 +164,8 @@ def host_lib(tmp_path_factory):
             lib.raft_round_paged.argtypes = [ctypes.c_void_p]
             lib.raft_round_chaos.argtypes = []
             lib.raft_round_chaos.restype = ctypes.c_int
+            lib.raft_round_lease.argtypes = []
+            lib.raft_round_lease.restype = ctypes.c_int
             libs[key] = lib
         return libs[key]
 
@@ -167,6 +179,8 @@ def _outputs(res):
     st, fb, samp, parts = res[:4]
     names = rc.dataclass_names()
     out = [("state." + n, x) for n, x in zip(names["STATE"], interop.to_numpy_leaves(st))]
+    if st.lease_left is not None:
+        out += [("state." + n, getattr(st, n).numpy()) for n in LEASE_STATE_FIELDS]
     out += [("fabric." + n, x) for n, x in zip(names["FABRIC"], interop.to_numpy_leaves(fb))]
     if samp is not None:
         out += [("samp_index", samp[0].numpy()), ("samp_round", samp[1].numpy())]
@@ -465,3 +479,88 @@ def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
     cols = c.chaos_columns()
     assert cols["round"] == r0 + 24 and 0 < cols["n_reelected"] <= G
     assert (cols["recommit_round"] != NEVER).any()
+
+
+@pytest.mark.parametrize("case", list(LEASE_CASES))
+def test_lease_lane_code_equals_plain_version(host_lib, case):
+    """The lease builds against round_kernel_ref on the same carry with the
+    lease columns: -DRAFT_LEASE=1 alone (a check_quorum cluster), and with
+    chaos, paging over two-block segments and the packed carry under tick
+    skew 0.5, a crash window and an instant restart of leased lanes. Live
+    leases, leaders' leases dropped with their epochs at 32,767 (the
+    re-grant wraps them), renewal counters at 2^31 - 2 (they wrap), a
+    transfer that revokes, a muted follower in two groups and launches
+    without proposals (a leader's ack quorum then needs its own slot: no
+    self-ack arrives), and the margin
+    0, 1 or 2 from launch to launch; ten launches at K = 1 and 3, every
+    carry leaf, partials row, PagedLog leaf and probe column."""
+    v, wefr, diet, plan, chaos = LEASE_CASES[case]
+    lib = host_lib(v, wefr, diet, plan, chaos, lease=True)
+    assert lib.raft_round_lease() == 1 and host_lib(v, wefr, diet, plan, chaos).raft_round_lease() == 0
+    n = G * v
+    paged = plan is not None
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v, wefr), device="cpu", diet=diet,
+                            chaos=chaos, lease=True, check_quorum=True, election_tick=5,
+                            engine="pallas", tile_lanes=2 * v, paged=paged,
+                            paged_inkernel=paged)
+    c.run(15, auto_propose=True, auto_compact_lag=12)
+    st = c.state
+    lead = st.state.to(torch.int32) == 2
+    assert bool((st.lease_left.to(torch.int32) > 0).any()), "no live lease to carry"
+
+    def put(col, mask, value):
+        return torch.where(mask, value, col.to(torch.int32)).to(col.dtype)
+
+    first = lead & (torch.arange(n) < 2 * v)
+    c.state = dataclasses.replace(
+        st, lease_left=put(st.lease_left, first, 0),
+        lease_epoch=put(st.lease_epoch, first, EPOCH_WRAP - 1),
+        lease_renewals=put(st.lease_renewals, lead, 2**31 - 2))
+    if chaos:
+        r0 = int(c.chaos.round)
+        crash, restart = np.full(n, NEVER, np.int32), np.full(n, NEVER, np.int32)
+        leaders = np.nonzero(lead.numpy())[0]
+        crash[leaders[0]], restart[leaders[0]] = r0 + 3, r0 + 6
+        crash[leaders[-1]], restart[leaders[-1]] = r0 + 5, r0 + 5
+        c.set_chaos(tick_skew_num=np.full(n, probability(0.5)), crash_at=crash,
+                    restart_at=restart)
+    xfer = np.nonzero(lead.numpy() & (np.arange(n) >= 2 * v))[0]
+    # one follower of groups 0 and 1 muted: their leaders' ack quorums need
+    # the leader's own slot in the launches without proposals
+    c.set_mute([next(g * v + j for j in range(v) if not lead[g * v + j]) for g in (0, 1)])
+    segments = rc.Segments(n // v, "cpu") if paged else None
+    seen = dict.fromkeys(LEASE_STATE_FIELDS[3:], 0)
+    for r in range(10):
+        metrics = r % 3 != 2
+        m = c.metrics
+        samp = (m.samp_index, m.samp_round) if metrics else None
+        ops = c._no_ops
+        if r == 4:  # a transfer away from the last groups' leaders revokes their leases
+            ops = c.ops(transfer_to={int(x): int((x + 1) % v + 1) for x in xfer})
+        args = (c.state, c.fab, ops, c.mute, samp, m.round_ctr if metrics else None)
+        kc = 1 + 2 * (r % 2)
+        kw = dict(v=v, kc=kc, cta=v if paged else 2 * v, apply_ops=True, ops_round0_only=True,
+                  do_tick=True, auto_propose=r % 4 != 3, auto_compact_lag=12,
+                  paged=c.paged, chaos=c.chaos, seg_lanes=2 * v, lease_margin=r % 3)
+        want = plr.round_kernel_ref(*args, **kw)
+        ptrs, dims, flags, lag, got = rc.pack(*args, segments=segments, **kw)
+        arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+        assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+        for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (case, r, name)
+        before = c.state
+        c.state, c.fab = want[0], want[1]
+        for k in seen:
+            seen[k] += int((getattr(c.state, k) != getattr(before, k)).sum())
+        if paged:
+            c.paged = want[4]
+        if metrics:
+            c.metrics = plr.fold_partials(m, want[2], want[3], kc)
+        if chaos:
+            c.chaos = plr.fold_chaos(c.chaos, want[-1], want[3], kc, metrics)
+    assert seen["lease_grants"] and seen["lease_renewals"] and seen["lease_revocations"], seen
+    if not chaos:  # the dropped leases were granted again, their epochs wrapped
+        assert int(c.state.lease_epoch[first].to(torch.int32).max()) == 0
+    assert (c.state.lease_renewals < 0).any()  # wrapped past 2^31 - 1
+    if chaos:
+        assert seen["lease_skew_revocations"], seen

@@ -209,10 +209,10 @@ def test_port_imports_no_jax_and_nothing_of_raft_tpu():
 
 
 def test_slim_dtypes_and_field_order_match_jax():
-    assert [f.name for f in dataclasses.fields(tst.RaftState)] == [
-        f.name
-        for f in dataclasses.fields(jst.RaftState)
-        if f.default is dataclasses.MISSING
+    # every field, the lease plane's optional columns after cfg included,
+    # with the same defaults
+    assert [(f.name, f.default) for f in dataclasses.fields(tst.RaftState)] == [
+        (f.name, f.default) for f in dataclasses.fields(jst.RaftState)
     ]
     assert {k: str(v).split(".")[-1] for k, v in tst.STATE_SLIM.items()} == {
         k: np.dtype(v).name for k, v in jst.STATE_SLIM.items()
