@@ -266,6 +266,10 @@ ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
     (_B3, 96, diet, PAGED_PLAN, True) for diet in (False, True)]
 ROUND_BUILDS = [b + (False,) for b in ROUND_BUILDS] + [
     (_B3, 96, diet, plan, chaos, True) for diet, plan, chaos in LEASE_BUILDS]
+# ... and the measuring twins (-DRAFT_STAMPS=1) of the chaos builds with
+# paging at the engine block, slim and diet: never launched by the engine,
+# read by round_kernel_chaos_paged(_diet)_timing
+STAMP_BUILDS = [(_B3, 96, diet, PAGED_PLAN, True, False) for diet in (False, True)]
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -953,7 +957,8 @@ def engine_cta(d: dict) -> int:
 
 def build_all() -> None:
     t0 = time.perf_counter()
-    built = build.build("quorum", *(rc.target(*b) for b in ROUND_BUILDS))
+    built = build.build("quorum", *(rc.target(*b) for b in ROUND_BUILDS),
+                        *(rc.target(*b, stamps=True) for b in STAMP_BUILDS))
     rows = {}
     for key, b in built.items():
         fns = ptxas_report(b.log)
@@ -973,6 +978,13 @@ def build_all() -> None:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
     for b in ROUND_BUILDS:
         rows[rc.target(*b).key].update(cta_lanes=b[1], **rc.occupancy(*b[:5], lease=b[5]))
+    for b in STAMP_BUILDS:
+        t = rc.target(*b, stamps=True)
+        slots = build.load(t).raft_round_stamps()
+        if slots != rc.stamp_slots():
+            raise AssertionError(f"{t.key}: {slots} stamp slots, the wrapper reads "
+                                 f"{rc.stamp_slots()}")
+        rows[t.key].update(cta_lanes=b[1], **rc.occupancy(*b[:5], lease=b[5], stamps=True))
     emit("build", seconds=time.perf_counter() - t0, targets=rows)
 
 
@@ -1946,6 +1958,107 @@ def check_parity_chaos_paged():
          n_reelected=int(cols["n_reelected"]), n_recommitted=int(cols["n_recommitted"]))
 
 
+def sm_clock_under_load(go) -> float:
+    """The SM clock (MHz) as nvidia-smi reads it while `go` launches back
+    to back on the card."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    n = 0
+    while proc.poll() is None:
+        go()
+        n += 1
+        if n % 64 == 0:
+            torch.cuda.synchronize()
+    out, _ = proc.communicate()
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
+def stamp_table(rows: np.ndarray, kc: int, cta: int, sm_mhz: float) -> dict:
+    """A stamp build's rows (csrc/round.cu ST_*, one a block) as phases:
+    for each, [median, max] over the blocks in us at `sm_mhz` (clock64
+    cycles / MHz). Thread 0's boundaries partition each block's launch
+    (start .. end), so the phases sum to its total; `rounds` is
+    split per round (round_us) and the laps (each thread's cycles in a
+    part of lane_round, over the launch) are the block's mean a thread
+    (median over blocks) and its slowest thread (max over blocks). From
+    %globaltimer: each block's wait at the segment barrier
+    (segment_wait_us), the spread of a segment's arrivals
+    (segment_arrival_spread_us), a block's time start to end
+    (block_globaltimer_us) and the launch's span, first start to last end
+    (span_us); sm_mhz_globaltimer is the SM clock those imply."""
+    st, laps = rc.stamp_fields()
+    col = {name: rows[:, j].astype(np.float64) for j, name in enumerate(st)}
+    base = rc.stamp_slots()
+    rk = rows[:, base:base + kc].astype(np.float64)
+    paged = bool(col["SEGMENT"].any())
+    edges = [("ticket", "START", "TICKET"), ("load", "TICKET", "LOAD"),
+             ("page_in", "LOAD", "PAGE_IN"), ("load_barrier", "PAGE_IN", "LOADED")]
+    cyc = {name: col[b] - col[a] for name, a, b in edges}
+    cyc["rounds"] = rk[:, -1] - col["LOADED"]
+    cyc["store"] = col["STORE"] - rk[:, -1]
+    if paged:
+        for name, a, b in (("scan", "STORE", "SCAN"), ("segment_barrier", "SCAN", "SEGMENT"),
+                           ("page_out", "SEGMENT", "PAGE_OUT"), ("pool", "PAGE_OUT", "POOL"),
+                           ("end", "POOL", "END")):
+            cyc[name] = col[b] - col[a]
+    else:
+        cyc["end"] = col["END"] - col["STORE"]
+    cyc["total"] = col["END"] - col["START"]
+
+    def mm(x_us):
+        return [float(np.median(x_us)), float(np.max(x_us))]
+
+    phases = {name: mm(x / sm_mhz) for name, x in cyc.items()}
+    per_round = np.diff(np.concatenate([col["LOADED"][:, None], rk], axis=1), axis=1)
+    lap = {}
+    for j, name in enumerate(laps):
+        s, m = rows[:, base - 2 * len(laps) + 2 * j], rows[:, base - 2 * len(laps) + 2 * j + 1]
+        lap[name.lower()] = [float(np.median(s / cta)) / sm_mhz, float(np.max(m)) / sm_mhz]
+    gt = {name: col[name] for name in st if name.startswith("GT_")}
+    block_ns = gt["GT_END"] - gt["GT_START"]
+    out = dict(
+        sm_mhz=sm_mhz, blocks=int(rows.shape[0]), sms=int(len(np.unique(col["SMID"]))),
+        phases_us=phases,
+        sum_of_median_phases_us=sum(v[0] for k, v in phases.items() if k != "total"),
+        round_us=mm(per_round.ravel() / sm_mhz), laps_us=lap,
+        block_globaltimer_us=mm(block_ns / 1e3),
+        span_us=float(gt["GT_END"].max() - gt["GT_START"].min()) / 1e3,
+        sm_mhz_globaltimer=float(np.median(cyc["total"] / np.maximum(block_ns, 1) * 1e3)),
+    )
+    if paged:
+        out["segment_wait_us"] = mm((gt["GT_SEG_OUT"] - gt["GT_SEG_IN"]) / 1e3)
+    return out
+
+
+def stamp_launch(kern, args, kw, target, segments, kc, want, what) -> dict:
+    """The stamp build `target` of `kern` on the same inputs: its outputs
+    against `want` (the plain version's), its time a launch (CUDA events),
+    and its stamp table at the SM clock nvidia-smi reads under its load."""
+    n = args[0].term.shape[0]
+    stamps = torch.zeros((n // kw["cta"], rc.stamp_slots() + kc), dtype=torch.int64,
+                         device=args[0].term.device)
+    ptrs, dims, flags, lag, outs = rc.pack(*args, segments=segments, stamps=stamps, **kw)
+    arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+    go = raw_launch(kern, arr, nptr, cdims, flags, lag, target=target, segments=segments)
+    go()
+    synchronize(what)
+    bad = first_difference(
+        carry_leaves(*outs[:4]) + paged_leaves(outs[4]) + probe_leaves(outs[5]),
+        carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5]))
+    if bad is not None:
+        raise AssertionError(f"{what}: first differing leaf {bad}")
+    ms = cuda_ms(go, iters=50 if kc == 1 else 10)
+    synchronize(f"{what} timing")
+    mhz = sm_clock_under_load(go)
+    stamps.zero_()
+    go()
+    synchronize(what)
+    table = stamp_table(stamps.cpu().numpy(), kc, kw["cta"], mhz)
+    return dict(stamp_ms=ms, **table)
+
+
 def time_round_kernel_chaos_paged(c, phase: str) -> dict:
     """The chaos build with paging at block 0 of the paged chaos cell (its
     resident carry, PagedLog and chaos state after the scenario) against
@@ -1954,7 +2067,10 @@ def time_round_kernel_chaos_paged(c, phase: str) -> dict:
     beside the paged build without chaos on the same carry, the plain
     version and the bytes bound: every input leaf read once and every
     output leaf written once, the page table, the pool, the knob, probe
-    and scalar leaves and the segment words included."""
+    and scalar leaves and the segment words included. After the timed
+    launches, the build's stamp twin (-DRAFT_STAMPS=1) on the same inputs:
+    its outputs, its time beside the timed build's, and where its launch
+    goes (`stamps`: stamp_table)."""
     b = c.blocks[0]
     diet = b._diet
     m = b.metrics
@@ -2012,6 +2128,9 @@ def time_round_kernel_chaos_paged(c, phase: str) -> dict:
                                    iters=20),
                 plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
             )
+        rows[kc]["stamps"] = stamp_launch(
+            kern, args, kw(kc), rc.target(d, cta, diet, plan, True, stamps=True), b._segments,
+            kc, want, f"{kern.name} stamps K={kc}")
         del go, outs, want, go0, outs0
     row = dict(rows[1], cta_lanes=cta, tile_lanes=tile, blocks_per_segment=tile // cta,
                lanes=n, k8=rows[8])

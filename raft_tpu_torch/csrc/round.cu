@@ -395,6 +395,10 @@
 #ifndef RAFT_LEASE
 #define RAFT_LEASE 0
 #endif
+
+#ifndef RAFT_STAMPS
+#define RAFT_STAMPS 0
+#endif
 #if RAFT_PAGED && (!defined(RAFT_WRES) || !defined(RAFT_PE) || !defined(RAFT_M))
 #error "the paged build takes its geometry: -DRAFT_WRES= -DRAFT_PE= -DRAFT_M="
 #endif
@@ -496,7 +500,9 @@ enum : int {
   // the lease build only: its columns in (LS_* order), then out
   P_LEASE_IN = RAFT_CHAOS ? P_CH_PROBE_OUT + kChaosProbes : P_CH_KNOB,
   P_LEASE_OUT = P_LEASE_IN + kLeaseN,
-  kNumPtrs = RAFT_LEASE ? P_LEASE_OUT + kLeaseN : P_LEASE_IN
+  P_STAMPS = RAFT_LEASE ? P_LEASE_OUT + kLeaseN : P_LEASE_IN,  // the stamp build only:
+                                   // [blocks, kStampSlots + kc] i64, a row a block
+  kNumPtrs = P_STAMPS + (RAFT_STAMPS ? 1 : 0)
 };
 
 // the PagedLog leaves (ops/paged.py LEAVES): pt [N, M] u16, the pool
@@ -562,6 +568,25 @@ constexpr int ERR_PAGE_EXHAUSTED = 128;  // state.py: a lane's pages did not fit
 constexpr int BIG = 2147483647;
 constexpr int EPOCH_WRAP = 1 << 15;  // ops/lease.py: lease_epoch wraps here
 constexpr long long kMaxMargin = 1 << 20;  // the lease margins a launch takes
+
+// The stamp build's row of a block (logical id), thread 0's stamps: clock64()
+// at each phase boundary, after a block barrier where the phase has none of
+// its own (so a phase ends with the block's slowest thread), %globaltimer
+// (ns) where blocks must line up, and
+// the in-round laps, each thread's cycles in a phase of lane_round summed
+// over the launch, reduced over the block (sum and max); round k's clock
+// after its last barrier at kStampSlots + k.
+enum : int {
+  ST_GT_START = 0, ST_START, ST_SMID, ST_TICKET, ST_LOAD, ST_PAGE_IN, ST_LOADED, ST_STORE,
+  ST_SCAN, ST_GT_SEG_IN, ST_GT_SEG_OUT, ST_SEGMENT, ST_PAGE_OUT, ST_POOL, ST_END, ST_GT_END,
+  ST_LAPS,
+};
+// the laps: chaos_begin; the round proper (clear_fab, ops, fused_round_lane,
+// the lease tail); chaos_dup and the probe flag; the storage boundary
+// (roundtrip_lane); and lane_probe with the recounts, after the round's
+// barrier
+enum : int { LAP_BEGIN, LAP_ROUND, LAP_DUP, LAP_BOUNDARY, LAP_PROBE, kLaps };
+constexpr int kStampSlots = ST_LAPS + 2 * kLaps;
 
 struct Args {
   void *p[kNumPtrs];
@@ -719,7 +744,9 @@ struct Block {
   static constexpr long long scan0 = acc0 + 2 * acc_bytes;
   // the chaos build's probe flags, a byte a lane
   static constexpr long long flag0 = scan0 + (RAFT_PAGED ? pad16(4LL * kScanSlots) : 0);
-  static constexpr long long bytes = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
+  // the stamp build's lap sums (sum, max), reduced at the launch's end
+  static constexpr long long lap0 = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
+  static constexpr long long bytes = lap0 + (RAFT_STAMPS ? pad16(8LL * kLaps) : 0);
 
   // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
   RAFT_HD long long fab32(int b) const { return fab0 + b * fab_bytes; }
@@ -727,6 +754,7 @@ struct Block {
   RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
   RAFT_HD int *scan() const { return (int *)(base + scan0); }
   RAFT_HD uint8_t *flag() const { return base + flag0; }
+  RAFT_HD unsigned *laps() const { return (unsigned *)(base + lap0); }
 };
 
 template <typename ST>
@@ -2572,7 +2600,26 @@ struct Thread {
 #if RAFT_LEASE
   LeaseRegs lease;
 #endif
+#if RAFT_STAMPS
+  uint32_t lap[kLaps];  // cycles in each lap, over the launch
+#endif
 };
+
+// The stamp build's laps: RAFT_LAP(th, x, c) adds the cycles since c to
+// lap x and restarts c. Without RAFT_STAMPS (and in the host build) both
+// are nothing.
+#if RAFT_STAMPS && defined(__CUDA_ARCH__)
+#define RAFT_LAP_START(c) long long c = clock64()
+#define RAFT_LAP(th, x, c)                        \
+  do {                                            \
+    const long long now_ = clock64();             \
+    (th).lap[x] += (uint32_t)(now_ - (c));        \
+    (c) = now_;                                   \
+  } while (0)
+#else
+#define RAFT_LAP_START(c)
+#define RAFT_LAP(th, x, c)
+#endif
 
 #if RAFT_LEASE
 // ---- ops/lease.py: the leader-lease plane of a lane -----------------------
@@ -2893,12 +2940,14 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   const int src = k & 1;
   const Fab in = inbox(B, src, t);
   const Fab out = outbox(B, src ^ 1, t);
+  RAFT_LAP_START(lap_c);
 #if RAFT_CHAOS
   // the cuts as masks read through the inbox: the senders' cells stay
   // as sent, for their duplicate redelivery below
   uint32_t cut[4];
   bool crashed, tick;
   chaos_begin(a, i, k, th, cut, crashed, tick);
+  RAFT_LAP(th, LAP_BEGIN, lap_c);
   InFab inb;
   static_cast<Fab &>(inb) = in;
   inb.rep_kind = KindCol{in.rep_kind.p, in.rep_kind.s, cut[0]};
@@ -2930,22 +2979,26 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   // is skew
   lane_lease(a, i, th, ev.ack, (a.flags & F_TICK) && !tick);
 #endif
+  RAFT_LAP(th, LAP_ROUND, lap_c);
   chaos_dup(a, outbox(B, src, t), out, i, k);
   // the probe's flags, before the storage boundary clamps committed
   B.flag()[t] = uint8_t((th.L.state == LEADER ? 1u : 0u) |
                         (th.L.committed > chaos_probe(a, CH_base_committed)[i] ? 2u : 0u));
+  RAFT_LAP(th, LAP_DUP, lap_c);
 #else
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
                    ev);
 #if RAFT_LEASE
   lane_lease(a, i, th, ev.ack, false);
 #endif
+  RAFT_LAP(th, LAP_ROUND, lap_c);
 #endif
   // the carry crosses the storage boundary between rounds
   roundtrip_lane(th.L, out);
 #if RAFT_LEASE
   lease_roundtrip(th);
 #endif
+  RAFT_LAP(th, LAP_BOUNDARY, lap_c);
 }
 
 // after the rounds: lane i's carry, its last outbox (fabric buffer b) and
@@ -3267,6 +3320,67 @@ __device__ __forceinline__ void add_events(const Events &ev, int *acc, int t, in
   if (leader && s) atomicAdd(&acc[C_LAT_SUM], s);
 }
 
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The stamp build's row of block `blk` (nullptr without RAFT_STAMPS), and
+// thread 0's stamps into it: clock64() (stamp) or %globaltimer (stamp_gt).
+__device__ __forceinline__ long long *stamp_row(const Args &a, long long blk) {
+#if RAFT_STAMPS
+  return (long long *)a.p[P_STAMPS] + blk * (kStampSlots + a.kc);
+#else
+  (void)a;
+  (void)blk;
+  return nullptr;
+#endif
+}
+
+__device__ __forceinline__ void stamp(long long *row, int slot, int t) {
+#if RAFT_STAMPS
+  if (t == 0) row[slot] = clock64();
+#endif
+}
+
+__device__ __forceinline__ void stamp_gt(long long *row, int slot, int t) {
+#if RAFT_STAMPS
+  if (t == 0) row[slot] = (long long)globaltimer_ns();
+#endif
+}
+
+// a stamp after a block barrier (the stamp build's only): the phase it
+// ends is the block's, up to its slowest thread
+__device__ __forceinline__ void stamp_sync(long long *row, int slot, int t) {
+#if RAFT_STAMPS
+  __syncthreads();
+  stamp(row, slot, t);
+#endif
+}
+
+#if RAFT_STAMPS
+// the block's laps into its row: each summed and maxed over the warp, then
+// one shared-memory atomic a warp (the lap row zeroed at the start)
+__device__ __forceinline__ void stamp_laps(const Block &B, const Thread &th, long long *row,
+                                           int t, int cta) {
+  const int live = cta - (t & ~31);
+  const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+  unsigned *laps = B.laps();
+#pragma unroll
+  for (int x = 0; x < kLaps; ++x) {
+    const unsigned s = __reduce_add_sync(mask, th.lap[x]);
+    const unsigned m = __reduce_max_sync(mask, th.lap[x]);
+    if ((t & 31) == 0) {
+      atomicAdd(&laps[2 * x], s);
+      atomicMax(&laps[2 * x + 1], m);
+    }
+  }
+  __syncthreads();
+  if (t < 2 * kLaps) row[ST_LAPS + t] = laps[t];
+}
+#endif
+
 #if RAFT_CHAOS
 // the chaos build's recounts: lanes with a recorded reelect / recommit
 // round, summed over the warp and added to the block's slots
@@ -3327,12 +3441,6 @@ __device__ __forceinline__ unsigned long long ld_acquire(const unsigned long lon
 
 __device__ __forceinline__ void st_release(unsigned long long *p, unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 // The block's logical id, which places its lanes: blockIdx.x when a
@@ -3423,16 +3531,23 @@ __device__ __forceinline__ void segment_barrier(const Args &a, const Block &B, l
 // runs (each lane's first page is 1 + the demand before it in the
 // segment), else the tables and the sub-pool are copied through
 __device__ __forceinline__ void page_out_block(const Args &a, const Block &B, long long blk,
-                                               long long i, int t, int cta, Thread &th) {
+                                               long long i, int t, int cta, Thread &th,
+                                               long long *srow) {
   const bool mine = !kCanSkip || __syncthreads_or(lane_moved(a, i, th.L));
   int k_lo, total;
   const int off = block_exclusive_scan(lane_need(th.L, k_lo), B.scan(), t, cta, total);
+  stamp_sync(srow, ST_SCAN, t);
   bool moved;
   int below, seg_total;
+  stamp_gt(srow, ST_GT_SEG_IN, t);
   segment_barrier(a, B, blk, t, cta, mine, total, moved, below, seg_total);
+  stamp_gt(srow, ST_GT_SEG_OUT, t);
+  stamp(srow, ST_SEGMENT, t);
   const long long seg = blk / a.bps;
   lane_page_out(a, i, seg, th, moved, 1 + below + off);
+  stamp_sync(srow, ST_PAGE_OUT, t);
   block_pool(a, seg, (int)(blk % a.bps), moved, seg_total, t, cta);
+  stamp_sync(srow, ST_POOL, t);
 }
 #endif
 
@@ -3445,20 +3560,42 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
   const int t = threadIdx.x, cta = blockDim.x;
   const bool metrics = a.flags & F_METRICS;
   const Block B{smem};
+#if RAFT_STAMPS
+  const long long c_start = clock64(), gt_start = (long long)globaltimer_ns();
+  if (t < 2 * kLaps) B.laps()[t] = 0;
+#endif
   for (int x = t; x < 2 * kAccN; x += cta) acc_row(B, x / kAccN)[x % kAccN] = 0;
 #if RAFT_PAGED
   const long long blk = logical_block(a, B, t);
 #else
   const long long blk = blockIdx.x;
 #endif
+  long long *const srow = stamp_row(a, blk);
+#if RAFT_STAMPS
+  if (t == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    srow[ST_GT_START] = gt_start;
+    srow[ST_START] = c_start;
+    srow[ST_SMID] = smid;
+  }
+#endif
+  stamp_sync(srow, ST_TICKET, t);
   const long long i = blk * cta + t;
   Thread th;
+#if RAFT_STAMPS
+#pragma unroll
+  for (int x = 0; x < kLaps; ++x) th.lap[x] = 0;
+#endif
   lane_load(a, B, i, t, th);
+  stamp_sync(srow, ST_LOAD, t);
 #if RAFT_PAGED
   lane_page_in(a, i, blk / a.bps, th);
 #endif
+  stamp_sync(srow, ST_PAGE_IN, t);
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
   __syncthreads();  // every lane's outbox is in buffer 0
+  stamp(srow, ST_LOADED, t);
   for (int k = 0; k < a.kc; ++k) {
     Events ev;
     lane_round(a, B, k, i, t, th, round_ctr, ev);
@@ -3469,19 +3606,28 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
 #if RAFT_CHAOS
     // the probe reads its group's flags; once every lane has read them and
     // added its recounts, the row is written (and the flags free again)
+    RAFT_LAP_START(lap_c);
     lane_probe(a, B, k, i, t);
     add_recounts(a, i, acc_row(B, k), t, cta);
+    RAFT_LAP(th, LAP_PROBE, lap_c);
     __syncthreads();
     write_partials(a, B, k, blk, gridDim.x, t, cta);
 #else
     if (metrics) write_partials(a, B, k, blk, gridDim.x, t, cta);
 #endif
+    stamp(srow, kStampSlots + k, t);
   }
   lane_store(a, B, a.kc & 1, i, t, th);  // the last round wrote buffer kc % 2
+  stamp_sync(srow, ST_STORE, t);
 #if RAFT_PAGED
   // after the store, so that the carry's registers are free for the
   // segment barrier and the allocator
-  page_out_block(a, B, blk, i, t, cta, th);
+  page_out_block(a, B, blk, i, t, cta, th, srow);
+#endif
+#if RAFT_STAMPS
+  stamp_sync(srow, ST_END, t);
+  stamp_gt(srow, ST_GT_END, t);
+  stamp_laps(B, th, srow, t, cta);
 #endif
 }
 
@@ -3650,6 +3796,10 @@ extern "C" int raft_round_chaos() { return RAFT_CHAOS; }
 // 1 for the lease build (its column pointers, in then out, close the
 // table, and dims[11] is the margin), else 0.
 extern "C" int raft_round_lease() { return RAFT_LEASE; }
+
+// The stamp build's fixed slots a row (kStampSlots; its stamp buffer, the
+// table's last pointer, holds kStampSlots + kc a block), else 0.
+extern "C" int raft_round_stamps() { return RAFT_STAMPS ? raft::kStampSlots : 0; }
 
 // The paged build's geometry {1, WRES, PE, M}, or {0, 0, 0, 0}.
 extern "C" void raft_round_paged(long long *out) {

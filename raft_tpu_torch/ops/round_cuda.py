@@ -75,6 +75,13 @@ Lease (ops/lease.py, a state whose lease columns are set): the lease build
 columns (RAFT_LEASE_FIELDS, uint16 for the three of RAFT_LEASE_DIET in a
 diet build) in and then out, after every other pointer, and the margin as
 the twelfth dimension, so one build serves every margin.
+
+Stamps (a measuring build, -DRAFT_STAMPS=1 beside any flags; `target(...,
+stamps=True)`, `pack(..., stamps=)`): the same kernel with thread 0 of each
+block recording where its launch goes into one int64 row a block
+([blocks, stamp_slots() + kc], the table's last pointer), laid out as the
+ST_* and LAP_* enums of csrc/round.cu (`stamp_fields`). The engine never
+builds or launches it; chip_smoke.py reads it.
 """
 
 from __future__ import annotations
@@ -136,6 +143,26 @@ GROUPS = ("STATE", "CFG", "FABRIC", "OPS")
 # (csrc/round.cu PG_*) close the pointer table
 LOG_LEAVES, PAGED_LEAVES = LOG_COLS, LEAVES
 _FAB_CHANNELS = tuple(f.name for f in dataclasses.fields(Fabric))
+
+
+@functools.cache
+def stamp_fields() -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """csrc/round.cu's stamp row: the ST_* slot names in order, and the
+    LAP_* lap names (each lap a (sum, max) pair of slots after them)."""
+    text = (build.CSRC / "round.cu").read_text()
+    st = re.search(r"enum : int \{\s*(ST_GT_START = 0,.*?)\};", text, re.S)
+    lap = re.search(r"enum : int \{ (LAP_\w+,.*?)kLaps \};", text, re.S)
+    if st is None or lap is None:
+        raise RuntimeError("csrc/round.cu has no stamp slot or lap enum")
+    return (tuple(re.findall(r"ST_(\w+)", st.group(1)))[:-1],
+            tuple(re.findall(r"LAP_(\w+)", lap.group(1))))
+
+
+def stamp_slots() -> int:
+    """The fixed slots of a stamp row (csrc/round.cu kStampSlots): the
+    ST_* slots and two a lap; round k's stamp follows at stamp_slots() + k."""
+    st, laps = stamp_fields()
+    return len(st) + 2 * len(laps)
 
 
 def reset_launches() -> None:
@@ -324,11 +351,12 @@ def stride(cta: int) -> int:
 
 
 def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
-           lease: bool = False) -> build.Target:
+           lease: bool = False, stamps: bool = False) -> build.Target:
     """The library of the kernel for Shape d and blocks of cta lanes, of
     the diet-v2 build (-DRAFT_DIET=1) with diet, of the paged build with
     plan = (W_res, PE, M), of the chaos build (-DRAFT_CHAOS=1) with chaos,
-    and of the lease build (-DRAFT_LEASE=1) with lease."""
+    of the lease build (-DRAFT_LEASE=1) with lease, and its measuring twin
+    (-DRAFT_STAMPS=1) with stamps."""
     paged = ()
     if plan is not None:
         paged = (("RAFT_PAGED", 1),) + tuple(zip(("RAFT_WRES", "RAFT_PE", "RAFT_M"), plan))
@@ -337,7 +365,8 @@ def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
         tuple((f"RAFT_{k.upper()}", d[k]) for k in "vwefr") + (("RAFT_S", stride(cta)),)
         + ((("RAFT_DIET", 1),) if diet else ()) + paged
         + ((("RAFT_CHAOS", 1),) if chaos else ())
-        + ((("RAFT_LEASE", 1),) if lease else ()),
+        + ((("RAFT_LEASE", 1),) if lease else ())
+        + ((("RAFT_STAMPS", 1),) if stamps else ()),
     )
 
 
@@ -405,12 +434,14 @@ class Segments:
 
 
 def occupancy(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False,
-              device=None, lease: bool = False) -> dict:
+              device=None, lease: bool = False, stamps: bool = False) -> dict:
     """csrc/round.cu raft_round_info for the library of Shape d and blocks
-    of cta lanes (built if needed): shared memory of a block, resident
-    blocks per SM, registers and local (stack) bytes per thread, as the
-    runtime reports them."""
-    fn = build.load(library(d, cta, diet, plan, chaos, lease)).raft_round_info
+    of cta lanes (built if needed; with stamps its -DRAFT_STAMPS=1 twin):
+    shared memory of a block, resident blocks per SM, registers and local
+    (stack) bytes per thread, as the runtime reports them."""
+    t = (target(d, cta, diet, plan, chaos, lease, stamps=True) if stamps
+         else library(d, cta, diet, plan, chaos, lease))
+    fn = build.load(t).raft_round_info
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
@@ -431,7 +462,7 @@ def resident_blocks(d: dict, cta: int, device, diet: bool = False, plan=None,
 
 def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
          ops_round0_only, do_tick, auto_propose, auto_compact_lag, paged=None, chaos=None,
-         seg_lanes=None, segments=None, lease_margin=1):
+         seg_lanes=None, segments=None, lease_margin=1, stamps=None):
     """Check every leaf and allocate the outputs; returns (pointer list,
     dims, flags, lag, outputs), outputs = (state, fab, sampler, partials)
     and, given `paged`, the PagedLog out, given `chaos`, the probe columns
@@ -440,7 +471,9 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
     CUDA block); segments: the barrier's scratch (`Segments`), required
     when a segment spans blocks: its owner (the cluster) keeps it across
     launches, so that a launch allocates and zeroes none. lease_margin:
-    the lease build's margin (0..MAX_MARGIN)."""
+    the lease build's margin (0..MAX_MARGIN). stamps: the stamp build's
+    row buffer, int64 [n / cta, stamp_slots() + kc] (only for a launch of
+    a -DRAFT_STAMPS=1 library)."""
     _check_layout()
     n = state.term.shape[0]
     d = dims_of(state, fab, v, paged)
@@ -551,6 +584,9 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
             _check(f"state.{name}", x, DTYPES[dt], _shape(kind, n, v, d), dev)
         ls_out = [torch.empty_like(x) for x in ls_in]
         ptrs += [ptr(x) for x in ls_in + ls_out]
+    if stamps is not None:  # the stamp build's row buffer closes the table
+        _check("stamps", stamps, torch.int64, (n // cta, stamp_slots() + kc), dev)
+        ptrs += [ptr(stamps)]
     flags = (
         (F_MUTE if mute is not None else 0) | (F_METRICS if metrics else 0)
         | (F_TICK if do_tick else 0) | (F_AUTO_PROPOSE if auto_propose else 0)
