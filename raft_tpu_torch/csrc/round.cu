@@ -532,6 +532,10 @@ constexpr int kPartialWidth = 128;
 constexpr int kChaosPart = RAFT_CHAOS ? 2 : 0;
 constexpr int kAccN = kPartUsed + kChaosPart;
 constexpr int NEVER = 1 << 30;  // chaos/device.py NEVER
+// The chaos build's rounds a launch: its facts of a launch hold round
+// numbers relative to the launch's first in 7 bits (pallas_round.py
+// MAX_ROUNDS_PER_CALL).
+constexpr int kMaxChaosRounds = 64;
 enum : int {
   C_ELECTIONS_STARTED = 0, C_ELECTIONS_WON, C_LEADER_CHANGES, C_COMMITS,
   C_PROPOSALS, C_PROPOSALS_DROPPED, C_MSGS_APP, C_MSGS_APP_RESP,
@@ -744,8 +748,14 @@ struct Block {
   static constexpr long long scan0 = acc0 + 2 * acc_bytes;
   // the chaos build's probe flags, a byte a lane
   static constexpr long long flag0 = scan0 + (RAFT_PAGED ? pad16(4LL * kScanSlots) : 0);
+  // the chaos build's facts of the launch: a word a lane (its down window
+  // and the knobs it draws on, chaos_facts), the probe's baseline a lane,
+  // and the launch's scalars (first round, heal_round, seed)
+  static constexpr long long fact0 = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
+  static constexpr long long base0 = fact0 + (RAFT_CHAOS ? pad16(4LL * S) : 0);
+  static constexpr long long csc0 = base0 + (RAFT_CHAOS ? pad16(4LL * S) : 0);
   // the stamp build's lap sums (sum, max), reduced at the launch's end
-  static constexpr long long lap0 = flag0 + (RAFT_CHAOS ? pad16(S) : 0);
+  static constexpr long long lap0 = csc0 + (RAFT_CHAOS ? 16 : 0);
   static constexpr long long bytes = lap0 + (RAFT_STAMPS ? pad16(8LL * kLaps) : 0);
 
   // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
@@ -754,6 +764,9 @@ struct Block {
   RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
   RAFT_HD int *scan() const { return (int *)(base + scan0); }
   RAFT_HD uint8_t *flag() const { return base + flag0; }
+  RAFT_HD uint32_t *fact() const { return (uint32_t *)(base + fact0); }
+  RAFT_HD int *probe_base() const { return (int *)(base + base0); }
+  RAFT_HD int *chaos_sc() const { return (int *)(base + csc0); }
   RAFT_HD unsigned *laps() const { return (unsigned *)(base + lap0); }
 };
 
@@ -2768,57 +2781,143 @@ RAFT_HD void wipe_lane(Lane &L, const Cfg &c) {
   L.rs_count = 0;
 }
 
-// begin_round for lane i in round k of the launch: the crash-window wipe,
-// the cut of each channel's inbound cells (the mute cut `th.cut`, the
-// partition masks, a down endpoint, a drop draw per edge), whether the lane
-// is down, its tick mask, and the probe's baseline at the heal round
-RAFT_HD void chaos_begin(const Args &a, long long i, int k, Thread &th, uint32_t (&cut)[4],
-                         bool &crashed, bool &tick) {
+// The facts of a launch. None of the knob columns changes inside a launch
+// (set_chaos acts between dispatches), so lane i reads them once, at its
+// load, into what its rounds test as bits:
+// - Thread::cut above the mute bits: the partition's cut (bit CUT_PART + j:
+//   member j's sends do not reach the lane), the rounds of its crash and
+//   restart wipes in this launch (k, or kNoRound), and whether its probe
+//   rounds are recorded (the output columns are written once, when one is);
+// - its word of the block's facts (B.fact(), read by its group's lanes):
+//   the rounds k of the launch in which it is down, [lo, hi), and whether
+//   any of its drop, duplicate or tick-skew numerators is nonzero;
+// - the probe's baseline (B.probe_base()), which changes only at the heal
+//   round, and the launch's scalars (B.chaos_sc()).
+constexpr int CUT_PART = 8, CUT_WIPE_C = 16, CUT_WIPE_R = 23;
+constexpr uint32_t CUT_REELECT = 1u << 30, CUT_RECOMMIT = 1u << 31;
+constexpr uint32_t kNoRound = 127;
+enum : uint32_t { FACT_DROP = 1u << 16, FACT_DUP = 1u << 17, FACT_SKEW = 1u << 18 };
+enum : int { SC_ROUND, SC_HEAL, SC_SEED };
+
+// x - r0 clamped to the launch's rounds [0, kc] (a down window's edge), or
+// as the round of an edge inside the launch, else kNoRound
+RAFT_HD uint32_t rel_clamp(long long x, int kc) {
+  return (uint32_t)(x < 0 ? 0 : x > kc ? kc : x);
+}
+RAFT_HD uint32_t rel_round(long long x, int kc) {
+  return x >= 0 && x < kc ? (uint32_t)x : kNoRound;
+}
+
+// whether a fact word's lane is down in round k of the launch
+RAFT_HD bool fact_down(uint32_t f, uint32_t k) { return (f & 0x7Fu) <= k && k < ((f >> 8) & 0x7Fu); }
+
+// lane i's (thread t's) facts of the launch, at its load (kc <=
+// kMaxChaosRounds): its word of B.fact() and its probe's baseline
+// written, its probe columns copied to their output rows (the lane's
+// working copies), and its bits of Thread::cut returned
+RAFT_HD uint32_t chaos_facts(const Args &a, const Block &B, long long i, int t) {
   const ChaosScalars sc = chaos_scalars(a);
-  const int rnd = sc.round + k;
-  const uint32_t seed = sc.seed;
-  const int *crash_at = knob(a, CH_crash_at), *restart_at = knob(a, CH_restart_at);
-  if (rnd == crash_at[i] || rnd == restart_at[i]) {
+  if (t == 0) {
+    B.chaos_sc()[SC_ROUND] = sc.round;
+    B.chaos_sc()[SC_HEAL] = sc.heal;
+    B.chaos_sc()[SC_SEED] = (int)sc.seed;
+  }
+  const long long c = (long long)knob(a, CH_crash_at)[i] - sc.round;
+  const long long r = (long long)knob(a, CH_restart_at)[i] - sc.round;
+  const long long g = i - i % V;
+  const int recv = knob(a, CH_part_recv)[i];
+  int send[V], drop[V], dup[V];
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    send[j] = knob(a, CH_part_send)[g + j];
+    drop[j] = knob(a, CH_drop_num)[i * V + j];
+    dup[j] = knob(a, CH_dup_num)[i * V + j];
+  }
+  uint32_t part = 0, f = rel_clamp(c, a.kc) | rel_clamp(r, a.kc) << 8;
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    if ((send[j] & recv) == 0) part |= 1u << j;
+    if (drop[j] > 0) f |= FACT_DROP;
+    if (dup[j] > 0) f |= FACT_DUP;
+  }
+  if (knob(a, CH_tick_skew_num)[i] > 0) f |= FACT_SKEW;
+  int probe[kChaosProbes];
+  RAFT_UNROLL
+  for (int k = 0; k < kChaosProbes; ++k) probe[k] = ((const int *)a.p[P_CH_PROBE_IN + k])[i];
+  RAFT_UNROLL
+  for (int k = 0; k < kChaosProbes; ++k) chaos_probe(a, k)[i] = probe[k];
+  B.fact()[t] = f;
+  B.probe_base()[t] = probe[CH_base_committed];
+  return part << CUT_PART | rel_round(c, a.kc) << CUT_WIPE_C | rel_round(r, a.kc) << CUT_WIPE_R |
+         (probe[CH_reelect_round] != NEVER ? CUT_REELECT : 0u) |
+         (probe[CH_recommit_round] != NEVER ? CUT_RECOMMIT : 0u);
+}
+
+// begin_round for lane i (thread t) in round k of the launch, from its
+// facts: the crash-window wipe, the cut of each channel's inbound cells
+// (the mute cut, the partition's, a down endpoint, a drop draw per edge),
+// whether the lane is down, its tick mask, and the probe's baseline at the
+// heal round
+RAFT_HD void chaos_begin(const Args &a, const Block &B, long long i, int t, int k, Thread &th,
+                         uint32_t (&cut)[4], bool &crashed, bool &tick) {
+  const int *sc = B.chaos_sc();
+  const int rnd = sc[SC_ROUND] + k;
+  const uint32_t seed = (uint32_t)sc[SC_SEED], kk = (uint32_t)k;
+  if (kk == ((th.cut >> CUT_WIPE_C) & 0x7Fu) || kk == ((th.cut >> CUT_WIPE_R) & 0x7Fu)) {
     wipe_lane(th.L, th.c);
 #if RAFT_LEASE
     th.lease.left = th.lease.skew = 0;  // the lease is gone; the epoch survives
 #endif
   }
-  crashed = rnd >= crash_at[i] && rnd < restart_at[i];
-  const long long base = i - i % V;
-  const int recv = knob(a, CH_part_recv)[i];
-  uint32_t cells = th.cut;
+  const int me = t % V;
+  const uint32_t *f = B.fact() + (t - me);
+  const uint32_t own = f[me];
+  crashed = fact_down(own, kk);
+  uint32_t cells = (th.cut | th.cut >> CUT_PART) & ((1u << V) - 1);
   RAFT_UNROLL
-  for (int j = 0; j < V; ++j) {
-    const bool down = rnd >= crash_at[base + j] && rnd < restart_at[base + j];
-    if ((knob(a, CH_part_send)[base + j] & recv) == 0 || crashed || down) cells |= 1u << j;
-  }
+  for (int j = 0; j < V; ++j)
+    if (crashed || fact_down(f[j], kk)) cells |= 1u << j;
   RAFT_UNROLL
   for (int ch = 0; ch < 4; ++ch) cut[ch] = cells;
-  RAFT_UNROLL
-  for (int j = 0; j < V; ++j) {
-    const int num = knob(a, CH_drop_num)[i * V + j];
+  if (own & FACT_DROP) {
+    const int *row = knob(a, CH_drop_num) + i * V;
+    const uint32_t e0 = (uint32_t)i * V;  // the lane's first edge, as the hash takes it
+    int num[V];
     RAFT_UNROLL
-    for (int ch = 0; ch < 4; ++ch)
-      if (decide(seed, rnd, (uint32_t)(i * V + j), SALT_DROP + ch, num)) cut[ch] |= 1u << j;
+    for (int j = 0; j < V; ++j) num[j] = row[j];
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) {
+      RAFT_UNROLL
+      for (int ch = 0; ch < 4; ++ch)
+        if (decide(seed, rnd, e0 + j, SALT_DROP + ch, num[j])) cut[ch] |= 1u << j;
+    }
   }
-  tick = !crashed && !decide(seed, rnd, (uint32_t)i, SALT_TICK_SKEW, knob(a, CH_tick_skew_num)[i]);
-  if (rnd == sc.heal) chaos_probe(a, CH_base_committed)[i] = th.L.committed;
+  tick = !crashed && !((own & FACT_SKEW) &&
+                       decide(seed, rnd, (uint32_t)i, SALT_TICK_SKEW, knob(a, CH_tick_skew_num)[i]));
+  if (rnd == sc[SC_HEAL]) {
+    B.probe_base()[t] = th.L.committed;
+    chaos_probe(a, CH_base_committed)[i] = th.L.committed;
+  }
 }
 
 // end_round's duplicate redelivery: where the draw fires, cell j of the
 // outbox this round delivered (`prev`, untouched by the cuts) goes into
 // the empty cell j of the new outbox `out`, every field of the channel
-RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long i, int k) {
-  const ChaosScalars sc = chaos_scalars(a);
-  const int rnd = sc.round + k;
-  const uint32_t seed = sc.seed;
+RAFT_HD void chaos_dup(const Args &a, const Block &B, const Fab &prev, const Fab &out,
+                       long long i, int t, int k) {
+  if (!(B.fact()[t] & FACT_DUP)) return;
+  const int rnd = B.chaos_sc()[SC_ROUND] + k;
+  const uint32_t seed = (uint32_t)B.chaos_sc()[SC_SEED];
+  const int *row = knob(a, CH_dup_num) + i * V;
+  const uint32_t e0 = (uint32_t)i * V;
+  int num[V];
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) num[j] = row[j];
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
-    const int num = knob(a, CH_dup_num)[i * V + j];
-    const uint32_t edge = (uint32_t)(i * V + j);
+    const uint32_t edge = e0 + j;
     if (prev.rep_kind[j] != MSG_NONE && out.rep_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 0, num)) {
+        decide(seed, rnd, edge, SALT_DUP + 0, num[j])) {
       out.rep_kind[j] = prev.rep_kind[j];
       out.rep_term[j] = prev.rep_term[j];
       out.rep_index[j] = prev.rep_index[j];
@@ -2837,14 +2936,14 @@ RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long
       out.rep_snap_term[j] = prev.rep_snap_term[j];
     }
     if (prev.hb_kind[j] != MSG_NONE && out.hb_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 1, num)) {
+        decide(seed, rnd, edge, SALT_DUP + 1, num[j])) {
       out.hb_kind[j] = prev.hb_kind[j];
       out.hb_term[j] = prev.hb_term[j];
       out.hb_commit[j] = prev.hb_commit[j];
       out.hb_context[j] = prev.hb_context[j];
     }
     if (prev.vote_kind[j] != MSG_NONE && out.vote_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 2, num)) {
+        decide(seed, rnd, edge, SALT_DUP + 2, num[j])) {
       out.vote_kind[j] = prev.vote_kind[j];
       out.vote_term[j] = prev.vote_term[j];
       out.vote_index[j] = prev.vote_index[j];
@@ -2853,7 +2952,7 @@ RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long
       out.vote_context[j] = prev.vote_context[j];
     }
     if (prev.vresp_kind[j] != MSG_NONE && out.vresp_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 3, num)) {
+        decide(seed, rnd, edge, SALT_DUP + 3, num[j])) {
       out.vresp_kind[j] = prev.vresp_kind[j];
       out.vresp_term[j] = prev.vresp_term[j];
       out.vresp_reject[j] = prev.vresp_reject[j];
@@ -2861,29 +2960,40 @@ RAFT_HD void chaos_dup(const Args &a, const Fab &prev, const Fab &out, long long
   }
 }
 
+// the probe's flag of lane t after round k, before the storage boundary
+// clamps committed: bit 0 a leader, bit 1 committed past the baseline
+// (read only from the heal round on, when the baseline holds)
+RAFT_HD void probe_flag(const Block &B, int k, int t, const Lane &L) {
+  const int *sc = B.chaos_sc();
+  const bool past = sc[SC_ROUND] + k >= sc[SC_HEAL] && L.committed > B.probe_base()[t];
+  B.flag()[t] = uint8_t((L.state == LEADER ? 1u : 0u) | (past ? 2u : 0u));
+}
+
 // end_round's recovery probe for lane t after the round's barrier: its
-// group's flags (bit 0 a leader, bit 1 committed past the baseline, one
-// byte a lane) record the first armed round of each
-RAFT_HD void lane_probe(const Args &a, const Block &B, int k, long long i, int t) {
-  const ChaosScalars sc = chaos_scalars(a);
-  const int rnd = sc.round + k;
+// group's flags (one byte a lane) record the first armed round of each,
+// in the output column and in the lane's recorded bits
+RAFT_HD void lane_probe(const Args &a, const Block &B, int k, long long i, int t, Thread &th) {
+  const int *sc = B.chaos_sc();
+  const int rnd = sc[SC_ROUND] + k;
+  if (rnd < sc[SC_HEAL]) return;
   const uint8_t *f = B.flag() + (t - t % V);
   uint32_t any = 0;
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) any |= f[j];
-  if (rnd >= sc.heal) {
-    int *re = chaos_probe(a, CH_reelect_round) + i, *co = chaos_probe(a, CH_recommit_round) + i;
-    if (*re == NEVER && (any & 1u)) *re = rnd;
-    if (*co == NEVER && (any & 2u)) *co = rnd;
+  if (!(th.cut & CUT_REELECT) && (any & 1u)) {
+    chaos_probe(a, CH_reelect_round)[i] = rnd;
+    th.cut |= CUT_REELECT;
+  }
+  if (!(th.cut & CUT_RECOMMIT) && (any & 2u)) {
+    chaos_probe(a, CH_recommit_round)[i] = rnd;
+    th.cut |= CUT_RECOMMIT;
   }
 }
 
-// whether lane i was wiped in a round of this launch (its crash or restart
-// round inside it): its through rows are zeroed at the store
-RAFT_HD bool chaos_wiped(const Args &a, long long i) {
-  const int r0 = chaos_scalars(a).round;
-  const int c = knob(a, CH_crash_at)[i], r = knob(a, CH_restart_at)[i];
-  return (c >= r0 && c - r0 < a.kc) || (r >= r0 && r - r0 < a.kc);
+// whether the lane was wiped in a round of this launch (its crash or
+// restart round inside it): its through rows are zeroed at the store
+RAFT_HD bool chaos_wiped(const Thread &th) {
+  return ((th.cut >> CUT_WIPE_C) & 0x7Fu) != kNoRound || ((th.cut >> CUT_WIPE_R) & 0x7Fu) != kNoRound;
 }
 
 // a through row of lane i zeroed in the output (a wiped lane's pri_ctx,
@@ -2919,9 +3029,7 @@ RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread
     if (mute[i]) th.cut = (1u << V) - 1;
   }
 #if RAFT_CHAOS
-  RAFT_UNROLL
-  for (int k = 0; k < kChaosProbes; ++k)
-    chaos_probe(a, k)[i] = ((const int *)a.p[P_CH_PROBE_IN + k])[i];
+  th.cut |= chaos_facts(a, B, i, t);
 #endif
 #if RAFT_LEASE
   th.lease.left = (int)lease_in<LS_lease_left>(a)[i];
@@ -2946,7 +3054,7 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   // as sent, for their duplicate redelivery below
   uint32_t cut[4];
   bool crashed, tick;
-  chaos_begin(a, i, k, th, cut, crashed, tick);
+  chaos_begin(a, B, i, t, k, th, cut, crashed, tick);
   RAFT_LAP(th, LAP_BEGIN, lap_c);
   InFab inb;
   static_cast<Fab &>(inb) = in;
@@ -2980,10 +3088,8 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   lane_lease(a, i, th, ev.ack, (a.flags & F_TICK) && !tick);
 #endif
   RAFT_LAP(th, LAP_ROUND, lap_c);
-  chaos_dup(a, outbox(B, src, t), out, i, k);
-  // the probe's flags, before the storage boundary clamps committed
-  B.flag()[t] = uint8_t((th.L.state == LEADER ? 1u : 0u) |
-                        (th.L.committed > chaos_probe(a, CH_base_committed)[i] ? 2u : 0u));
+  chaos_dup(a, B, outbox(B, src, t), out, i, t, k);
+  probe_flag(B, k, t, th.L);
   RAFT_LAP(th, LAP_DUP, lap_c);
 #else
   fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
@@ -3012,7 +3118,7 @@ RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t
     ((int *)a.p[P_SAMP_ROUND_OUT])[i] = th.samp.round;
   }
 #if RAFT_CHAOS
-  if (chaos_wiped(a, i)) {
+  if (chaos_wiped(th)) {
     zero_row<SL_pri_ctx, RAFT_ST_I32>(a, i);
     zero_row<SL_pri_from, RAFT_ST_I32>(a, i);
   }
@@ -3046,6 +3152,7 @@ RAFT_HD bool args_of(void *const *ptrs, int nptrs, const long long *dims, int fl
   if (dims[8] != 0 || dims[9] != 1 || dims[10] != 0) return false;
 #endif
   if (RAFT_LEASE ? dims[11] < 0 || dims[11] > kMaxMargin : dims[11] != 0) return false;
+  if (RAFT_CHAOS && dims[6] > kMaxChaosRounds) return false;
   for (int p = 0; p < kNumPtrs; ++p) a.p[p] = ptrs[p];
   a.n = dims[0];
   a.kc = (int)dims[6];
@@ -3383,13 +3490,13 @@ __device__ __forceinline__ void stamp_laps(const Block &B, const Thread &th, lon
 
 #if RAFT_CHAOS
 // the chaos build's recounts: lanes with a recorded reelect / recommit
-// round, summed over the warp and added to the block's slots
-__device__ __forceinline__ void add_recounts(const Args &a, long long i, int *acc, int t,
-                                             int cta) {
+// round (their bits in Thread::cut), summed over the warp and added to the
+// block's slots
+__device__ __forceinline__ void add_recounts(const Thread &th, int *acc, int t, int cta) {
   const int live = cta - (t & ~31);
   const unsigned mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
-  const int s0 = __reduce_add_sync(mask, chaos_probe(a, CH_reelect_round)[i] != NEVER ? 1 : 0);
-  const int s1 = __reduce_add_sync(mask, chaos_probe(a, CH_recommit_round)[i] != NEVER ? 1 : 0);
+  const int s0 = __reduce_add_sync(mask, th.cut & CUT_REELECT ? 1 : 0);
+  const int s1 = __reduce_add_sync(mask, th.cut & CUT_RECOMMIT ? 1 : 0);
   if ((t & 31) == 0) {
     if (s0) atomicAdd(&acc[kPartUsed], s0);
     if (s1) atomicAdd(&acc[kPartUsed + 1], s1);
@@ -3607,8 +3714,8 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
     // the probe reads its group's flags; once every lane has read them and
     // added its recounts, the row is written (and the flags free again)
     RAFT_LAP_START(lap_c);
-    lane_probe(a, B, k, i, t);
-    add_recounts(a, i, acc_row(B, k), t, cta);
+    lane_probe(a, B, k, i, t, th);
+    add_recounts(th, acc_row(B, k), t, cta);
     RAFT_LAP(th, LAP_PROBE, lap_c);
     __syncthreads();
     write_partials(a, B, k, blk, gridDim.x, t, cta);
@@ -3726,10 +3833,9 @@ int round_host(const Args &a, int cta) {
         }
 #if RAFT_CHAOS
         for (int t = 0; t < cta; ++t) {
-          const long long i = blk * cta + t;
-          lane_probe(a, B, k, i, t);
-          acc[kPartUsed] += chaos_probe(a, CH_reelect_round)[i] != NEVER;
-          acc[kPartUsed + 1] += chaos_probe(a, CH_recommit_round)[i] != NEVER;
+          lane_probe(a, B, k, blk * cta + t, t, tb[t]);
+          acc[kPartUsed] += (tb[t].cut & CUT_REELECT) != 0;
+          acc[kPartUsed + 1] += (tb[t].cut & CUT_RECOMMIT) != 0;
         }
         for (int t = 0; t < cta; ++t) write_partials(a, B, k, blk, n_blocks, t, cta);
 #else

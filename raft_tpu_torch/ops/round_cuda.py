@@ -111,6 +111,7 @@ MAX_SMEM = 232_448  # shared memory one block can use on the H100 (227 KB)
 PARTIAL_WIDTH = 128  # csrc/round.cu kPartialWidth
 PART_USED = 25  # csrc/round.cu kPartUsed
 CHAOS_PART = 2  # csrc/round.cu kChaosPart: the recount slots of the chaos build
+MAX_CHAOS_ROUNDS = 64  # csrc/round.cu kMaxChaosRounds: rounds a chaos launch takes
 SCAN_SLOTS = MAX_CTA // 32 + 4  # csrc/round.cu kScanSlots: warp totals, id, segment
 
 _P = ctypes.c_void_p
@@ -376,8 +377,9 @@ def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> i
     stride S, two fabric buffers at stride S + 1, two partials rows (with
     the chaos build's two recount slots), in the paged build one row of
     warp totals and four ints of the segment barrier (SCAN_SLOTS), and in
-    the chaos build one probe-flag byte a lane; each region padded to 16
-    bytes."""
+    the chaos build one probe-flag byte a lane, its facts of the launch (a
+    word a lane, the probe's baseline a lane, and four scalar ints); each
+    region padded to 16 bytes."""
     v, w, e, f, r = (d[k] for k in "vwefr")
     elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
              "READ_PEER": r * v, "ENT": v * e}
@@ -396,7 +398,7 @@ def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> i
     fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
     acc = pad(4 * (PART_USED + (CHAOS_PART if chaos else 0)))
     return (rings + 2 * fab + 2 * acc + (pad(4 * SCAN_SLOTS) if paged else 0)
-            + (pad(sr) if chaos else 0))
+            + (pad(sr) + 2 * pad(4 * sr) + 16 if chaos else 0))
 
 
 def cta_lanes(tile_lanes: int, v: int, dims: dict | None = None,
@@ -486,6 +488,8 @@ def pack(state, fab, ops, mute, sampler, round_ctr, *, v, kc, cta, apply_ops,
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
     if not 1 <= kc:
         raise ValueError(f"kc must be >= 1, got {kc}")
+    if chaos is not None and kc > MAX_CHAOS_ROUNDS:
+        raise ValueError(f"the chaos build takes kc <= {MAX_CHAOS_ROUNDS}, got {kc}")
     dev = state.term.device
     tab = layout(is_packed(state))
     groups = {

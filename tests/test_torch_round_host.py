@@ -309,20 +309,31 @@ def test_diet_lane_code_equals_plain_version(host_lib, v, cfg, wefr, near):
 SEGMENTS = {"1-block": (6, 6), "2-block": (6, 3), "4-block": (12, 3)}
 
 
+# (pool pages, groups muted from the start) of the paged lane tests: a pool
+# that holds every lane, one that exhausts (it clips a block's run of
+# pages), and the exhausting one with the first two groups silent, so that
+# the first block (in the 4-block segments the first two) needs no page:
+# an empty run
+POOLS = {"full_pool": (0, 0), "exhausting_pool": (8, 0), "empty_block": (8, 2)}
+
+
 @pytest.mark.parametrize("segment", list(SEGMENTS))
-@pytest.mark.parametrize("pool", [0, 8], ids=["full_pool", "exhausting_pool"])
+@pytest.mark.parametrize("pool", list(POOLS))
 @pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
 def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
     """The paged build (in-kernel paging, allocation segments of 1, 2 and
     4 CUDA blocks) against round_kernel_ref on the same resident carry and
     PagedLog: launches at K = 1 and 3 with proposals while the logs outrun
-    the resident window (the allocator runs: pages written, and with the
-    8-page pool lanes clamped with ERR_PAGE_EXHAUSTED), then quiet
-    launches (no tick, no proposals) until the allocator is skipped on
-    both sides. A segment of several blocks takes the barrier's scratch
-    from its caller: pack refuses it without one."""
+    the resident window (the allocator runs: each block's run of pages
+    written, and with the 8-page pool runs clipped at the sub-pool's end
+    and lanes clamped with ERR_PAGE_EXHAUSTED; `empty_block`: blocks whose
+    muted groups never append write an empty run beside full ones), then
+    quiet launches (no tick, no proposals) until the allocator is skipped
+    on both sides. A segment of several blocks takes the barrier's
+    scratch from its caller: pack refuses it without one."""
     v = 3
     tile, cta = SEGMENTS[segment]
+    pool, silent = POOLS[pool]
     lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN)
     geo = (ctypes.c_longlong * 4)()
     lib.raft_round_paged(geo)
@@ -335,6 +346,8 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
     c = tfused.FusedCluster(G, v, seed=7, shape=shape, device="cpu", diet=diet,
                             engine="pallas", tile_lanes=tile, paged=True, paged_inkernel=True)
     assert c._paged_segs == n // tile and c.paged.pool_term.shape[0] == (pool or n * 3 + 8)
+    if silent:
+        c.set_mute(range(silent * v))
     c.run(12, auto_propose=True, auto_compact_lag=12)
     skipped0 = int(c.paged.skipped.sum())
     segments = rc.Segments(n // cta, "cpu") if tile > cta else None
@@ -363,6 +376,8 @@ def test_paged_lane_code_equals_plain_version(host_lib, diet, pool, segment):
     assert stats["paged_pages_dirty"] > 0 and stats["paged_alloc_skipped"] > skipped0
     exhausted = (c.state.error_bits & ERR_PAGE_EXHAUSTED) != 0
     assert bool(exhausted.any()) == (pool > 0) and (stats["paged_exhausted"] > 0) == (pool > 0)
+    if silent:  # the silent groups' lanes hold no page: their block's run was empty
+        assert not c.paged.pt[: silent * v].to(torch.int32).any()
 
 
 @pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
@@ -417,17 +432,35 @@ def test_chaos_lane_code_equals_plain_version(host_lib, diet):
     assert (cols["base_committed"] > 0).any() and (cols["recommit_round"] != NEVER).any()
 
 
+# The crash windows of the chaos-paged lane tests, (lane, crash_at,
+# restart_at) in rounds after the first launch's first round r0; the
+# launches start at r0 + 0, 1, 4, 5, 8, 9, 12, 13, ... (K = 1, 3, 1, 3, ...).
+# `inside`: a window that opens inside a K=3 launch and closes at one's
+# first round, and an instant restart at a K=1 launch. `launch_edges`: a
+# window open since before the first launch that closes at a K=3 launch's
+# last round, one that opens and closes at K=3 launches' first rounds, one
+# that opens and closes at their last rounds, and an instant restart at a
+# K=3 launch's first round.
+CRASHES = {
+    "inside": ((1, 2, 5), (3 * 3, 4, 4)),
+    "launch_edges": ((1, -3, 3), (3 + 1, 5, 9), (2 * 3 + 2, 7, 11), (3 * 3, 13, 13)),
+}
+
+
+@pytest.mark.parametrize("crashes", list(CRASHES))
 @pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
-def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
+def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet, crashes):
     """The chaos build with paging (round_kernel_chaos_paged) against
     round_kernel_ref(paged=, chaos=) on the same resident carry, PagedLog
     and ChaosState, over two 6-lane segments of two 3-lane blocks: the
     chaos case's faults (drops, duplicates, an asymmetric partition, tick
-    skew, a crash window and an instant restart inside launches, the heal
-    round armed inside one) with proposals while the logs outrun the
-    resident window, metrics on and off, then quiet launches until the
-    allocator is skipped; every carry leaf, partials row, PagedLog leaf
-    and probe column."""
+    skew, crash windows and an instant restart, CRASHES: inside launches,
+    or at a launch's first and last rounds and from before the first, the
+    edges the kernel's facts of a launch encode, the heal round armed at a
+    launch's last round) with proposals while the logs outrun the resident
+    window, metrics on and off, then quiet launches until the allocator is
+    skipped; every carry leaf, partials row, PagedLog leaf and probe
+    column."""
     v = 3
     lib = host_lib(v, PAGED_WEFR, diet, PAGED_PLAN, True)
     geo = (ctypes.c_longlong * 4)()
@@ -445,8 +478,8 @@ def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet):
     send, recv = np.ones(n, np.int32), np.ones(n, np.int32)
     send[2 * v], recv[2 * v] = 3, 2
     crash, restart = np.full(n, NEVER, np.int32), np.full(n, NEVER, np.int32)
-    crash[1], restart[1] = r0 + 2, r0 + 5
-    crash[3 * v], restart[3 * v] = r0 + 4, r0 + 4
+    for lane, down, up in CRASHES[crashes]:
+        crash[lane], restart[lane] = r0 + down, r0 + up
     c.set_chaos(drop_num=edge.astype(np.int32), dup_num=edge.astype(np.int32),
                 tick_skew_num=np.full(n, probability(0.3)), part_send=send, part_recv=recv,
                 crash_at=crash, restart_at=restart, heal_round=r0 + 7,
