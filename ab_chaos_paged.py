@@ -1,19 +1,21 @@
-"""Two trees' chaos builds with paging, timed in one process on one card.
+"""Several trees' chaos builds with paging, timed in one process on one card.
 
-    python3 ab_chaos_paged.py --parent DIR [--before DIR] [--out FILE]
+    python3 ab_chaos_paged.py --parent DIR [--tree NAME=DIR ...] [--before DIR]
+                              [--out FILE]
 
 Drives chip_smoke.py's main_pallas_chaos_paged cell (the chaos scenario at
 1,048,576 groups, 128 blocks of 8,192, paging in the kernel at K=8), slim
 and diet, and at block 0's carry after the scenario launches
-`round_kernel_chaos_paged` (slim, then `_diet`) of this tree and of the
-tree whose csrc directory is `--parent` (e.g. a `git archive` of the
-parent commit, unpacked), K=1 and K=8: every launch's outputs against the
-plain version, then the two timed in turns, parent, this tree, this tree,
-parent (CUDA events, `cuda_ms`). Then the stamp twin (-DRAFT_STAMPS=1) of
-this tree and, with `--before`, of that tree's csrc: each one's outputs,
-its time a launch and its phase table (chip_smoke.stamp_table). Each
-other tree's library is compiled from its own round.cu and quorum.cuh
-with this tree's nvcc flags; its pointer table must be this tree's.
+`round_kernel_chaos_paged` (slim, then `_diet`) of the tree whose csrc
+directory is `--parent` (e.g. a `git archive` of the parent commit,
+unpacked), of each `--tree`, and of this tree ("change"), K=1 and K=8:
+every launch's outputs against the plain version, then all timed in
+turns, parent, the trees, this tree, and back (CUDA events, `cuda_ms`),
+twice. Then the stamp twin (-DRAFT_STAMPS=1) of each `--tree`, of this
+tree and, with `--before`, of that tree's csrc: each one's outputs, its
+time a launch and its phase table (chip_smoke.stamp_table). Each other
+tree's library is compiled from its own round.cu and quorum.cuh with this
+tree's nvcc flags; its pointer table must be this tree's.
 
 Needs one CUDA card. One JSON line a result; the last line is
 {"ok": true, ...}. With --out, every line is also written to FILE.
@@ -36,13 +38,15 @@ from raft_tpu_torch import build
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
 
-_LINES: list[str] = []
+_OUT: list[Path] = []  # --out, when given
 
 
 def emit(phase: str, **fields) -> None:
     line = json.dumps({"phase": phase, **fields})
-    _LINES.append(line)
     print(line, flush=True)
+    for path in _OUT:
+        with path.open("a") as f:
+            f.write(line + "\n")
 
 
 def start_nvcc(csrc: Path, t: build.Target, out: Path) -> subprocess.Popen:
@@ -71,17 +75,9 @@ class Lib:
         return self._fn
 
 
-def compare(outs, want, what: str) -> None:
-    bad = cs.first_difference(
-        cs.carry_leaves(*outs[:4]) + cs.paged_leaves(outs[4]) + cs.probe_leaves(outs[5]),
-        cs.carry_leaves(*want[:4]) + cs.paged_leaves(want[4]) + cs.probe_leaves(want[5]))
-    if bad is not None:
-        raise AssertionError(f"{what}: first differing leaf {bad}")
-
-
 def ab_block(c, libs: dict, stamp_libs: dict, tag: str) -> None:
-    """libs: {"parent": Lib, "change": Lib} of the timed build; stamp_libs:
-    {tree: (Lib, build.Target or None)} of the stamp twins."""
+    """libs: {tree: Lib} of the timed build, "parent" first and "change"
+    last; stamp_libs: {tree: Lib} of the stamp twins."""
     b = c.blocks[0]
     m = b.metrics
     args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
@@ -103,29 +99,40 @@ def ab_block(c, libs: dict, stamp_libs: dict, tag: str) -> None:
             go[tree] = cs.raw_launch(lib, arr, nptr, cdims, flags, lag, segments=b._segments)
             go[tree]()
             cs.synchronize(f"{tag} {tree} K={kc}")
-            compare(outs, want, f"{tag} {tree} K={kc}")
+            bad = cs.first_difference(cs.chaos_paged_leaves(outs), cs.chaos_paged_leaves(want))
+            if bad is not None:
+                raise AssertionError(f"{tag} {tree} K={kc}: first differing leaf {bad}")
         iters = 50 if kc == 1 else 10
+        order = list(libs)
         turns = []
-        for tree in ("parent", "change", "change", "parent") * 2:
+        for tree in (order + order[::-1]) * 2:
             turns.append([tree, cs.cuda_ms(go[tree], iters=iters)])
             cs.synchronize(f"{tag} {tree} K={kc} timing")
         mean = {tree: sum(ms for t, ms in turns if t == tree) / 4 for tree in libs}
         emit(f"ab_{tag}", kc=kc, lanes=b.shape.n_lanes, cta_lanes=cta, tile_lanes=tile,
-             turns_ms=turns, mean_ms=mean, change_over_parent=mean["change"] / mean["parent"])
-        for tree, (lib, target) in stamp_libs.items():
-            row = cs.stamp_launch(lib, args, kw(kc), target, b._segments, kc, want,
+             turns_ms=turns, mean_ms=mean,
+             over_parent={tree: ms / mean["parent"] for tree, ms in mean.items()})
+        for tree, lib in stamp_libs.items():
+            row = cs.stamp_launch(lib, args, kw(kc), None, b._segments, kc, want,
                                   f"{tag} stamps {tree} K={kc}")
-            emit(f"stamps_{tag}", tree=tree, kc=kc, timed_ms=mean["change" if tree == "change"
-                                                                else "parent"], **row)
+            # the timed build of the same source ("before": the parent's)
+            emit(f"stamps_{tag}", tree=tree, kc=kc,
+                 timed_ms=mean["parent" if tree == "before" else tree], **row)
         del go, outs, want
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True, help="the parent tree's csrc directory")
+    ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
+                    help="another tree's csrc directory, timed and stamped")
     ap.add_argument("--before", type=Path, help="a tree's csrc whose stamp twin to read too")
     ap.add_argument("--out", type=Path, help="also write every JSON line here")
     opt = ap.parse_args()
+    if opt.out is not None:
+        opt.out.parent.mkdir(parents=True, exist_ok=True)
+        opt.out.write_text("")
+        _OUT.append(opt.out)
     if not torch.cuda.is_available():
         print("ab_chaos_paged: no CUDA device available", file=sys.stderr)
         return 1
@@ -136,16 +143,22 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     out_dir = build.BUILD_DIR / "ab"
+    trees = dict(t.split("=", 1) for t in opt.tree)
+    timed = ["parent", *trees, "change"]
+    stamped = (["before"] if opt.before is not None else []) + [*trees, "change"]
+    src = {"parent": opt.parent, "before": opt.before, "change": build.CSRC,
+           **{name: Path(d) for name, d in trees.items()}}
     jobs, libs = {}, {}
     for diet in (False, True):
         b = (cs._B3, 96, diet, cs.PAGED_PLAN, True, False)
-        jobs[("parent", diet)] = (opt.parent, rc.target(*b))
-        jobs[("change", diet)] = (build.CSRC, rc.target(*b))
-        jobs[("stamps_change", diet)] = (build.CSRC, rc.target(*b, stamps=True))
-        if opt.before is not None:
-            jobs[("stamps_before", diet)] = (opt.before, rc.target(*b, stamps=True))
-    procs = {key: (start_nvcc(src, t, out_dir / f"{key[0]}-{t.key}.so"), out_dir / f"{key[0]}-{t.key}.so")
-             for key, (src, t) in jobs.items()}
+        for tree in timed:
+            jobs[(tree, diet)] = (src[tree], rc.target(*b))
+        for tree in stamped:
+            jobs[("stamps_" + tree, diet)] = (src[tree], rc.target(*b, stamps=True))
+    procs = {}
+    for key, (csrc, t) in jobs.items():
+        path = out_dir / f"{key[0]}-{t.key}.so"
+        procs[key] = (start_nvcc(csrc, t, path), path)
     # the cell's own libraries meanwhile (the engine builds on first use)
     build.build(*(rc.target(cs._B3, 96, diet, cs.PAGED_PLAN, True) for diet in (False, True)))
     logs = {}
@@ -163,17 +176,14 @@ def main() -> int:
             dev, f"cell_{tag}", cs.CHAOS_PAGED_BLOCK_GROUPS, cs.CHAOS_PAGED_POOL,
             engine="pallas", rounds_per_call=8, paged=True, paged_inkernel=True, diet=diet)
         cs.synchronize(f"cell {tag}")
-        timed = {tree: Lib(f"{tree} {tag}", libs[(tree, diet)]) for tree in ("parent", "change")}
-        stamps = {"change": (Lib(f"stamps {tag}", libs[("stamps_change", diet)]), None)}
-        if opt.before is not None:
-            stamps["before"] = (Lib(f"before stamps {tag}", libs[("stamps_before", diet)]), None)
-        ab_block(c, timed, stamps, tag)
+        emit(f"cell_{tag}", round_ms=run["round_ms"], digest=run["digest"],
+             pool_in_use=run.get("paged_pool_in_use"))
+        ab_block(c, {tree: Lib(f"{tree} {tag}", libs[(tree, diet)]) for tree in timed},
+                 {tree: Lib(f"{tree} stamps {tag}", libs[("stamps_" + tree, diet)])
+                  for tree in stamped}, tag)
         del c
         torch.cuda.empty_cache()
     emit("ok", ok=True, seconds=time.perf_counter() - t0)
-    if opt.out is not None:
-        opt.out.parent.mkdir(parents=True, exist_ok=True)
-        opt.out.write_text("\n".join(_LINES) + "\n")
     return 0
 
 

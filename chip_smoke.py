@@ -16,8 +16,10 @@ Phases:
            W16/E2/F2/R2 at V=3 with the engine's 96-lane block and 6, 48 and
            192 lanes, at V=5 with 10, the diet-v2 build at V=3 with 96
            and 6, the paged builds, slim and diet, with 96 and 6, the
-           chaos builds, slim and diet, with 96, 6 and 10, and the chaos
-           builds with paging, slim and diet, with 96),
+           chaos builds, slim and diet, with 96, 6 and 10, the chaos
+           builds with paging, slim and diet, with 96, the eight lease
+           builds with 96, and the stamp twins, -DRAFT_STAMPS=1, of the
+           chaos builds with paging, STAMP_BUILDS),
            all started together: seconds of each, ptxas's
            registers, stack frame and spills of every kernel function
            (each quorum kernel at each V), and the round kernel's shared
@@ -160,7 +162,11 @@ Phases:
            pages in use (segment_pages_peak against segment_pool_rows,
            sampled after every schedule segment), peak memory; the builds
            timed at block 0 (round_kernel_chaos_paged_timing,
-           round_kernel_chaos_paged_diet_timing)
+           round_kernel_chaos_paged_diet_timing), each with its stamp
+           twin's phase table at K=1 and K=8 (`stamps`: per phase the
+           median and max over the blocks in us at the SM clock nvidia-smi
+           reads under the twin's load, the twin's ms beside the timed
+           build's; stamp_table)
   round_kernel_lease  the eight lease builds (-DRAFT_LEASE=1 with every
            combination of diet, paging and chaos) against
            round_kernel_ref on a 128-group cluster with check_quorum and
@@ -1495,6 +1501,12 @@ def chaos_plan(n: int, v: int, r0: int, groups: int = 4) -> dict:
                 heal_round=r0 + 2, reelect_round=never, recommit_round=never.copy())
 
 
+def chaos_paged_leaves(res) -> list:
+    """A chaos launch with paging's outputs as (name, array) leaves: the
+    carry and partials, the PagedLog, the probe columns."""
+    return carry_leaves(*res[:4]) + paged_leaves(res[4]) + probe_leaves(res[5])
+
+
 def probe_leaves(probes) -> list:
     """(name, numpy leaf) of a chaos launch's probe columns."""
     return [("chaos." + k, x.cpu().numpy()) for k, x in zip(tch.PROBES, probes)]
@@ -1871,8 +1883,7 @@ def check_round_kernel_chaos_paged(dev):
                             f"pool={pool} launch {i}")
                     synchronize(what)
                     want = plr.round_kernel_ref(*args, **kw)
-                    a = carry_leaves(*got[:4]) + paged_leaves(got[4]) + probe_leaves(got[5])
-                    b = carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5])
+                    a, b = chaos_paged_leaves(got), chaos_paged_leaves(want)
                     bad = first_difference(a, b)
                     if bad is not None or interop.digest([x for _, x in a]) != interop.digest(
                         [x for _, x in b]
@@ -2044,9 +2055,7 @@ def stamp_launch(kern, args, kw, target, segments, kc, want, what) -> dict:
     go = raw_launch(kern, arr, nptr, cdims, flags, lag, target=target, segments=segments)
     go()
     synchronize(what)
-    bad = first_difference(
-        carry_leaves(*outs[:4]) + paged_leaves(outs[4]) + probe_leaves(outs[5]),
-        carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5]))
+    bad = first_difference(chaos_paged_leaves(outs), chaos_paged_leaves(want))
     if bad is not None:
         raise AssertionError(f"{what}: first differing leaf {bad}")
     ms = cuda_ms(go, iters=50 if kc == 1 else 10)
@@ -2099,9 +2108,7 @@ def time_round_kernel_chaos_paged(c, phase: str) -> dict:
         go()
         synchronize(f"{kern.name} K={kc}")
         want = plr.round_kernel_ref(*args, **kw(kc))
-        bad = first_difference(
-            carry_leaves(*outs[:4]) + paged_leaves(outs[4]) + probe_leaves(outs[5]),
-            carry_leaves(*want[:4]) + paged_leaves(want[4]) + probe_leaves(want[5]))
+        bad = first_difference(chaos_paged_leaves(outs), chaos_paged_leaves(want))
         if bad is not None:
             raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
                                  f"first differing leaf {bad}")

@@ -108,8 +108,15 @@
 //   before the round's barrier and read after it, then a second barrier
 //   before the partials row takes the block's recounts. The draws are
 //   chaos/device.py's counter-based hash on the global lane (i), so
-//   blocks and K do not change them. Knobs are read from device memory
-//   each round; the probe columns ride in registers. With RAFT_PAGED
+//   blocks and K do not change them. No knob changes inside a launch, so
+//   a lane reads its crash, restart and partition columns once, at its
+//   load, into facts of the launch (chaos_facts; kc <= 64): its down
+//   window in the launch's rounds, in a word of shared memory its group
+//   reads, and its wipe rounds, the partition's cut and its probe's
+//   recorded rounds as bits above the mute cut; a round tests bits and
+//   loads its drop, duplicate or skew numerators only where one is
+//   nonzero. The probe's baseline, which changes only at the heal round,
+//   sits in shared memory beside the launch's scalars. With RAFT_PAGED
 //   (round_kernel_chaos_paged, replacing :589-730) the lane pages in,
 //   runs the chaos rounds and pages out: a crash wipe keeps the log and
 //   its cursors (state.py wipe_volatile), so the probe's barriers inside
@@ -134,6 +141,19 @@
 // - Metrics: each counter summed across the warp (redux) and added to the
 //   block's shared row with one atomic per warp; exact in any order. One
 //   partials row per (round, block); the rows are summed outside.
+// - The stamp build (-DRAFT_STAMPS=1 beside any flags: a measuring twin,
+//   never launched by the engine). Thread 0 of each block writes its row
+//   of one more pointer, int64 [blocks, kStampSlots + kc]: clock64() at
+//   every phase boundary (ticket, load, page-in, each round's last
+//   barrier, store, block scan, segment barrier, page-out, pool pass),
+//   each after a block barrier (one the build adds where the kernel has
+//   none, so that a phase ends with the block's slowest thread),
+//   %globaltimer where blocks must line up (start, end, around the
+//   segment barrier), its SM, and the laps, each thread's cycles in the
+//   parts of lane_round (chaos_begin, the round proper, chaos_dup with the
+//   probe flag, the storage boundary, lane_probe) summed and maxed over
+//   the block. A stamp marks when thread 0 issued a phase, not when its
+//   loads landed: a load's latency shows in the phase that first uses it.
 // - The source is laid out as functions that mirror the Python modules
 //   (ops/log.py, ops/progress.py, ops/step.py, ops/fused.py), so a leaf
 //   that differs points at one function.
@@ -2597,9 +2617,10 @@ namespace raft {
 // an SM, registers allocated four warps a block), which the carry and the
 // round fill. The paged build reads what page-in saw again at page-out
 // (the lane's input cursors and page-table row), the chaos build keeps
-// the probe columns in their output rows, written at load and updated in
-// place (chaos_probe), and the lease build keeps its countdown and skew
-// here and its epoch and counters in their output rows (lease_col).
+// its facts of the launch in `cut` above the mute bits and in shared
+// memory (chaos_facts) and writes a probe column only when it records a
+// round, and the lease build keeps its countdown and skew here and its
+// epoch and counters in their output rows (lease_col).
 #if RAFT_LEASE
 struct LeaseRegs {
   int left, skew;  // lease_left, lease_skew (widened)
@@ -2609,7 +2630,8 @@ struct Thread {
   Lane L;
   Cfg c;
   Sampler samp;
-  uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut)
+  uint32_t cut;  // bit j: lane j of the group or this lane muted (the mute cut);
+                 // the chaos build's facts above (CUT_*)
 #if RAFT_LEASE
   LeaseRegs lease;
 #endif
@@ -2737,15 +2759,6 @@ RAFT_HD const int *knob(const Args &a, int k) { return (const int *)a.p[P_CH_KNO
 // probe column k (PROBES order) of the launch's output, the lane's working
 // copy from its load on
 RAFT_HD int *chaos_probe(const Args &a, int k) { return (int *)a.p[P_CH_PROBE_OUT + k]; }
-// the chaos scalars: the launch's first round, heal_round, the seed
-struct ChaosScalars {
-  int round, heal;
-  uint32_t seed;
-};
-RAFT_HD ChaosScalars chaos_scalars(const Args &a) {
-  return {*(const int *)a.p[P_CH_ROUND], *(const int *)a.p[P_CH_HEAL],
-          *(const uint32_t *)a.p[P_CH_SEED]};
-}
 
 // state.py wipe_volatile on the lane's registers and ring columns (every
 // index a loop constant); the through rows pri_ctx / pri_from are zeroed
@@ -2816,14 +2829,14 @@ RAFT_HD bool fact_down(uint32_t f, uint32_t k) { return (f & 0x7Fu) <= k && k < 
 // written, its probe columns copied to their output rows (the lane's
 // working copies), and its bits of Thread::cut returned
 RAFT_HD uint32_t chaos_facts(const Args &a, const Block &B, long long i, int t) {
-  const ChaosScalars sc = chaos_scalars(a);
+  const int r0 = *(const int *)a.p[P_CH_ROUND];  // the launch's first round
   if (t == 0) {
-    B.chaos_sc()[SC_ROUND] = sc.round;
-    B.chaos_sc()[SC_HEAL] = sc.heal;
-    B.chaos_sc()[SC_SEED] = (int)sc.seed;
+    B.chaos_sc()[SC_ROUND] = r0;
+    B.chaos_sc()[SC_HEAL] = *(const int *)a.p[P_CH_HEAL];
+    B.chaos_sc()[SC_SEED] = *(const int *)a.p[P_CH_SEED];
   }
-  const long long c = (long long)knob(a, CH_crash_at)[i] - sc.round;
-  const long long r = (long long)knob(a, CH_restart_at)[i] - sc.round;
+  const long long c = (long long)knob(a, CH_crash_at)[i] - r0;
+  const long long r = (long long)knob(a, CH_restart_at)[i] - r0;
   const long long g = i - i % V;
   const int recv = knob(a, CH_part_recv)[i];
   int send[V], drop[V], dup[V];

@@ -431,3 +431,40 @@ def test_pack_refuses_bad_launch_geometry(pack_args, cta, kc, match):
     *args, kw = pack_args
     with pytest.raises(ValueError, match=match):
         rc.pack(*args, **dict(kw, cta=cta, kc=kc))
+
+
+def test_stamp_twin_takes_one_more_pointer(pack_args):
+    """The measuring twin (-DRAFT_STAMPS=1) is its build's library with
+    one macro more, and its launch packs the same table with the stamp
+    buffer last: int64 [blocks, stamp_slots() + kc], refused otherwise.
+    The row's slots are csrc/round.cu's ST_* enum and two a LAP_* lap."""
+    *args, kw = pack_args
+    d = dict(v=V, w=8, e=2, f=2, r=2)
+    t, twin = rc.target(d, TILE), rc.target(d, TILE, stamps=True)
+    assert twin.defines == t.defines + (("RAFT_STAMPS", 1),) and twin.key != t.key
+    st, laps = rc.stamp_fields()
+    assert st[:2] == ("GT_START", "START") and st[-1] == "GT_END"
+    assert laps == ("BEGIN", "ROUND", "DUP", "BOUNDARY", "PROBE")
+    assert rc.stamp_slots() == len(st) + 2 * len(laps)
+    n_ptrs = len(rc.pack(*args, **kw)[0])
+    buf = torch.zeros((G * V // TILE, rc.stamp_slots() + kw["kc"]), dtype=torch.int64)
+    ptrs = rc.pack(*args, stamps=buf, **kw)[0]
+    assert len(ptrs) == n_ptrs + 1 and ptrs[-1] == buf.data_ptr()
+    with pytest.raises(ValueError, match="stamps must have shape"):
+        rc.pack(*args, stamps=buf[:, 1:].contiguous(), **kw)
+
+
+def test_pack_refuses_a_chaos_launch_past_64_rounds():
+    """The chaos build keeps its facts of a launch in 7-bit round numbers:
+    a chaos launch takes at most MAX_CHAOS_ROUNDS rounds, the engine's
+    MAX_ROUNDS_PER_CALL; a launch without chaos takes more."""
+    c = tfused.FusedCluster(G, V, shape=_shape(), device="cpu", chaos=True)
+    m = c.metrics
+    args = (c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    kw = dict(v=V, cta=TILE, apply_ops=True, ops_round0_only=True, do_tick=True,
+              auto_propose=True, auto_compact_lag=4)
+    assert rc.MAX_CHAOS_ROUNDS == plr.MAX_ROUNDS_PER_CALL
+    rc.pack(*args, kc=rc.MAX_CHAOS_ROUNDS, chaos=c.chaos, **kw)
+    rc.pack(*args, kc=rc.MAX_CHAOS_ROUNDS + 1, **kw)
+    with pytest.raises(ValueError, match="the chaos build takes kc <= 64"):
+        rc.pack(*args, kc=rc.MAX_CHAOS_ROUNDS + 1, chaos=c.chaos, **kw)
