@@ -447,8 +447,9 @@ CRASHES = {
 }
 
 
-@pytest.mark.parametrize("crashes", list(CRASHES))
-@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+@pytest.mark.parametrize("diet,crashes", [
+    (False, "inside"), (True, "inside"), (False, "launch_edges"), (True, "launch_edges"),
+], ids=["slim", "diet", "slim-launch_edges", "diet-launch_edges"])
 def test_chaos_paged_lane_code_equals_plain_version(host_lib, diet, crashes):
     """The chaos build with paging (round_kernel_chaos_paged) against
     round_kernel_ref(paged=, chaos=) on the same resident carry, PagedLog
