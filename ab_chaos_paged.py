@@ -1,19 +1,23 @@
-"""Several trees' chaos builds with paging, timed in one process on one card.
+"""Several trees' paged round builds, timed in one process on one card.
 
     python3 ab_chaos_paged.py --parent DIR [--tree NAME=DIR ...] [--before DIR]
-                              [--out FILE]
+                              [--cell chaos_paged|paged ...] [--out FILE]
 
-Drives chip_smoke.py's main_pallas_chaos_paged cell (the chaos scenario at
-1,048,576 groups, 128 blocks of 8,192, paging in the kernel at K=8), slim
-and diet, and at block 0's carry after the scenario launches
-`round_kernel_chaos_paged` (slim, then `_diet`) of the tree whose csrc
-directory is `--parent` (e.g. a `git archive` of the parent commit,
-unpacked), of each `--tree`, and of this tree ("change"), K=1 and K=8:
-every launch's outputs against the plain version, then all timed in
-turns, parent, the trees, this tree, and back (CUDA events, `cuda_ms`),
-twice. Then the stamp twin (-DRAFT_STAMPS=1) of each `--tree`, of this
-tree and, with `--before`, of that tree's csrc: each one's outputs, its
-time a launch and its phase table (chip_smoke.stamp_table). Each other
+For each `--cell` (default chaos_paged), slim and diet: drives the cell,
+chaos_paged chip_smoke.py's main_pallas_chaos_paged (the chaos scenario at
+1,048,576 groups, 128 blocks of 8,192, paging in the kernel at K=8) and
+paged its main_pallas_paged in-kernel run (1,048,576 groups as 64 blocks
+of 16,384 under benches/paged_ab.py's Zipf traffic, K=8, 3,072-lane
+segments), and at block 0's carry after it launches the cell's build
+(`round_kernel_chaos_paged` or `round_kernel_paged`, slim, then `_diet`)
+of the tree whose csrc directory is `--parent` (e.g. a `git archive` of
+the parent commit, unpacked), of each `--tree`, and of this tree
+("change"), K=1 and K=8: every launch's outputs against the plain
+version, then all timed in turns, parent, the trees, this tree, and back
+(CUDA events, `cuda_ms`), twice. Then the stamp twin (-DRAFT_STAMPS=1) of
+each `--tree`, of this tree and, with `--before`, of that tree's csrc:
+each one's outputs, its time a launch and its phase table with the wave
+facts (chip_smoke.stamp_table: late_blocks, max_blocks_an_sm). Each other
 tree's library is compiled from its own round.cu and quorum.cuh with this
 tree's nvcc flags; its pointer table must be this tree's.
 
@@ -75,20 +79,22 @@ class Lib:
         return self._fn
 
 
-def ab_block(c, libs: dict, stamp_libs: dict, tag: str) -> None:
+def ab_block(c, libs: dict, stamp_libs: dict, tag: str, chaos: bool) -> None:
     """libs: {tree: Lib} of the timed build, "parent" first and "change"
-    last; stamp_libs: {tree: Lib} of the stamp twins."""
+    last; stamp_libs: {tree: Lib} of the stamp twins; chaos: the cell's
+    build is a chaos build (its launches take the cell's chaos state and
+    its compaction lag, 8; the paged cell's is 12)."""
     b = c.blocks[0]
     m = b.metrics
     args = (b.state, b.fab, b._no_ops, b.mute, (m.samp_index, m.samp_round), m.round_ctr)
     d = rc.dims_of(b.state, b.fab, b.v, b.paged)
     tile = b._pallas_tile
-    cta = rc.cta_lanes(tile, b.v, d, chaos=True, paged=True)
+    cta = rc.cta_lanes(tile, b.v, d, chaos=chaos, paged=True)
 
     def kw(kc):
         return dict(v=b.v, kc=kc, cta=cta, apply_ops=True, ops_round0_only=True, do_tick=True,
-                    auto_propose=True, auto_compact_lag=8, paged=b.paged, chaos=b.chaos,
-                    seg_lanes=tile)
+                    auto_propose=True, auto_compact_lag=8 if chaos else 12, paged=b.paged,
+                    chaos=b.chaos if chaos else None, seg_lanes=tile)
 
     for kc in (1, 8):
         want = plr.round_kernel_ref(*args, **kw(kc))
@@ -99,7 +105,7 @@ def ab_block(c, libs: dict, stamp_libs: dict, tag: str) -> None:
             go[tree] = cs.raw_launch(lib, arr, nptr, cdims, flags, lag, segments=b._segments)
             go[tree]()
             cs.synchronize(f"{tag} {tree} K={kc}")
-            bad = cs.first_difference(cs.chaos_paged_leaves(outs), cs.chaos_paged_leaves(want))
+            bad = cs.first_difference(cs.paged_launch_leaves(outs), cs.paged_launch_leaves(want))
             if bad is not None:
                 raise AssertionError(f"{tag} {tree} K={kc}: first differing leaf {bad}")
         iters = 50 if kc == 1 else 10
@@ -127,6 +133,8 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="another tree's csrc directory, timed and stamped")
     ap.add_argument("--before", type=Path, help="a tree's csrc whose stamp twin to read too")
+    ap.add_argument("--cell", action="append", choices=("chaos_paged", "paged"),
+                    help="the cell whose build to time (default chaos_paged; repeatable)")
     ap.add_argument("--out", type=Path, help="also write every JSON line here")
     opt = ap.parse_args()
     if opt.out is not None:
@@ -148,41 +156,50 @@ def main() -> int:
     stamped = (["before"] if opt.before is not None else []) + [*trees, "change"]
     src = {"parent": opt.parent, "before": opt.before, "change": build.CSRC,
            **{name: Path(d) for name, d in trees.items()}}
+    cells = [cell == "chaos_paged" for cell in dict.fromkeys(opt.cell or ["chaos_paged"])]
     jobs, libs = {}, {}
-    for diet in (False, True):
-        b = (cs._B3, 96, diet, cs.PAGED_PLAN, True, False)
-        for tree in timed:
-            jobs[(tree, diet)] = (src[tree], rc.target(*b))
-        for tree in stamped:
-            jobs[("stamps_" + tree, diet)] = (src[tree], rc.target(*b, stamps=True))
+    for chaos in cells:
+        for diet in (False, True):
+            b = (cs._B3, 96, diet, cs.PAGED_PLAN, chaos, False)
+            for tree in timed:
+                jobs[(tree, diet, chaos)] = (src[tree], rc.target(*b))
+            for tree in stamped:
+                jobs[("stamps_" + tree, diet, chaos)] = (src[tree], rc.target(*b, stamps=True))
     procs = {}
     for key, (csrc, t) in jobs.items():
         path = out_dir / f"{key[0]}-{t.key}.so"
         procs[key] = (start_nvcc(csrc, t, path), path)
-    # the cell's own libraries meanwhile (the engine builds on first use)
-    build.build(*(rc.target(cs._B3, 96, diet, cs.PAGED_PLAN, True) for diet in (False, True)))
+    # the cells' own libraries meanwhile (the engine builds on first use)
+    build.build(*(rc.target(cs._B3, 96, diet, cs.PAGED_PLAN, chaos)
+                  for chaos in cells for diet in (False, True)))
     logs = {}
     for key, (proc, path) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {key} exited {proc.returncode}:\n{log}")
-        logs[f"{key[0]}{'_diet' if key[1] else ''}"] = [
+        logs[f"{key[0]}{'_chaos' if key[2] else ''}{'_diet' if key[1] else ''}"] = [
             f for f in cs.ptxas_report(log) if "round_kernel" in f["function"]]
         libs[key] = path
     emit("build", seconds=time.perf_counter() - t0, ptxas=logs)
-    for diet in (False, True):
-        tag = "round_kernel_chaos_paged" + ("_diet" if diet else "")
-        c, run, _ = cs.run_main_chaos(
-            dev, f"cell_{tag}", cs.CHAOS_PAGED_BLOCK_GROUPS, cs.CHAOS_PAGED_POOL,
-            engine="pallas", rounds_per_call=8, paged=True, paged_inkernel=True, diet=diet)
-        cs.synchronize(f"cell {tag}")
-        emit(f"cell_{tag}", round_ms=run["round_ms"], digest=run["digest"],
-             pool_in_use=run.get("paged_pool_in_use"))
-        ab_block(c, {tree: Lib(f"{tree} {tag}", libs[(tree, diet)]) for tree in timed},
-                 {tree: Lib(f"{tree} stamps {tag}", libs[("stamps_" + tree, diet)])
-                  for tree in stamped}, tag)
-        del c
-        torch.cuda.empty_cache()
+    for chaos in cells:
+        for diet in (False, True):
+            tag = rc.kernel_name(diet, True, chaos)
+            if chaos:
+                c, run, _ = cs.run_main_chaos(
+                    dev, f"cell_{tag}", cs.CHAOS_PAGED_BLOCK_GROUPS, cs.CHAOS_PAGED_POOL,
+                    engine="pallas", rounds_per_call=8, paged=True, paged_inkernel=True,
+                    diet=diet)
+            else:
+                c, run = cs.paged_cell(dev, f"cell_{tag}", paged=True, paged_inkernel=True,
+                                       diet=diet)
+            cs.synchronize(f"cell {tag}")
+            emit(f"cell_{tag}", round_ms=run["round_ms"], digest=run["digest"],
+                 pool_in_use=run.get("paged_pool_in_use"))
+            ab_block(c, {tree: Lib(f"{tree} {tag}", libs[(tree, diet, chaos)]) for tree in timed},
+                     {tree: Lib(f"{tree} stamps {tag}", libs[("stamps_" + tree, diet, chaos)])
+                      for tree in stamped}, tag, chaos)
+            del c
+            torch.cuda.empty_cache()
     emit("ok", ok=True, seconds=time.perf_counter() - t0)
     return 0
 

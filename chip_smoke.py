@@ -19,11 +19,12 @@ Phases:
            chaos builds, slim and diet, with 96, 6 and 10, the chaos
            builds with paging, slim and diet, with 96, the eight lease
            builds with 96, and the stamp twins, -DRAFT_STAMPS=1, of the
-           chaos builds with paging, STAMP_BUILDS),
+           paged builds and the chaos builds with paging, STAMP_BUILDS),
            all started together: seconds of each, ptxas's
            registers, stack frame and spills of every kernel function
            (each quorum kernel at each V), and the round kernel's shared
-           memory and resident blocks per SM
+           memory and resident blocks per SM, each round build beside the
+           layout with two fabric buffers (TWO_BUFFERS)
   kernels  each quorum kernel against its plain version at V = 1..8 and
            N = 196,608 (one block's lanes), 196,609-196,611, 100,003 and 3
            (every n % 4 of the quad kernels), and the lane-major kernels
@@ -272,10 +273,76 @@ ROUND_BUILDS = [(_B3, 96, False, None, False), (_B3, 6, False, None, False),
     (_B3, 96, diet, PAGED_PLAN, True) for diet in (False, True)]
 ROUND_BUILDS = [b + (False,) for b in ROUND_BUILDS] + [
     (_B3, 96, diet, plan, chaos, True) for diet, plan, chaos in LEASE_BUILDS]
-# ... and the measuring twins (-DRAFT_STAMPS=1) of the chaos builds with
-# paging at the engine block, slim and diet: never launched by the engine,
-# read by round_kernel_chaos_paged(_diet)_timing
-STAMP_BUILDS = [(_B3, 96, diet, PAGED_PLAN, True, False) for diet in (False, True)]
+# ... and the measuring twins (-DRAFT_STAMPS=1) of the paged builds and of
+# the chaos builds with paging at the engine block, slim and diet: never
+# launched by the engine, read by round_kernel_paged(_diet)_timing and
+# round_kernel_chaos_paged(_diet)_timing
+STAMP_BUILDS = [(_B3, 96, diet, PAGED_PLAN, chaos, False) for chaos in (False, True)
+                for diet in (False, True)]
+# Each build's shared memory a block, resident blocks an SM, registers a
+# thread and spilled bytes (ptxas's stores + loads) as the layout with two
+# fabric buffers compiled them (NVIDIA H100 80GB HBM3, CUDA 12.8): the
+# build phase prints them beside this tree's as `two_buffers`
+TWO_BUFFERS = {
+    "round-v3-w16-e2-f2-r2-s96":
+        (75648, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s32":
+        (25728, 8, 255, 0),
+    "round-v5-w16-e2-f2-r2-s32":
+        (38272, 5, 255, 0),
+    "round-v3-w16-e2-f2-r2-s64":
+        (50688, 4, 255, 0),
+    "round-v3-w16-e2-f2-r2-s192":
+        (150528, 1, 255, 0),
+    "round-v3-w16-e2-f2-r2-s96-diet1":
+        (75648, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s32-diet1":
+        (25728, 8, 225, 0),
+    "round-v3-w16-e2-f2-r2-s96-paged1-wres8-pe4-m4":
+        (75696, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-diet1-paged1-wres8-pe4-m4":
+        (75696, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s32-paged1-wres8-pe4-m4":
+        (25776, 8, 228, 0),
+    "round-v3-w16-e2-f2-r2-s32-diet1-paged1-wres8-pe4-m4":
+        (25776, 8, 214, 0),
+    "round-v3-w16-e2-f2-r2-s96-chaos1":
+        (76528, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-diet1-chaos1":
+        (76528, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s32-chaos1":
+        (26032, 8, 255, 0),
+    "round-v3-w16-e2-f2-r2-s32-diet1-chaos1":
+        (26032, 8, 246, 0),
+    "round-v5-w16-e2-f2-r2-s32-chaos1":
+        (38576, 5, 255, 0),
+    "round-v5-w16-e2-f2-r2-s32-diet1-chaos1":
+        (38576, 5, 255, 0),
+    "round-v3-w16-e2-f2-r2-s96-paged1-wres8-pe4-m4-chaos1":
+        (76576, 3, 168, 16),
+    "round-v3-w16-e2-f2-r2-s96-diet1-paged1-wres8-pe4-m4-chaos1":
+        (76576, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-lease1":
+        (75648, 3, 168, 32),
+    "round-v3-w16-e2-f2-r2-s96-diet1-lease1":
+        (75648, 3, 166, 0),
+    "round-v3-w16-e2-f2-r2-s96-paged1-wres8-pe4-m4-lease1":
+        (75696, 3, 168, 52),
+    "round-v3-w16-e2-f2-r2-s96-diet1-paged1-wres8-pe4-m4-lease1":
+        (75696, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-chaos1-lease1":
+        (76528, 3, 168, 16),
+    "round-v3-w16-e2-f2-r2-s96-diet1-chaos1-lease1":
+        (76528, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-paged1-wres8-pe4-m4-chaos1-lease1":
+        (76576, 3, 168, 68),
+    "round-v3-w16-e2-f2-r2-s96-diet1-paged1-wres8-pe4-m4-chaos1-lease1":
+        (76576, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-paged1-wres8-pe4-m4-chaos1-stamps1":
+        (76624, 3, 168, 0),
+    "round-v3-w16-e2-f2-r2-s96-diet1-paged1-wres8-pe4-m4-chaos1-stamps1":
+        (76624, 3, 168, 16),
+}
 MAIN_GROUPS = 1 << 20
 MAIN_BLOCK_GROUPS = 1 << 16
 VOTERS = 3
@@ -982,6 +1049,11 @@ def build_all() -> None:
             }
         else:
             rows[key]["ptxas"] = [f for f in fns if "round_kernel" in f["function"]]
+            rows[key]["spill_bytes"] = sum(f["spill_stores"] + f["spill_loads"]
+                                           for f in rows[key]["ptxas"])
+            was = TWO_BUFFERS.get(key)
+            rows[key]["two_buffers"] = was and dict(
+                zip(("smem_bytes", "blocks_per_sm", "registers", "spill_bytes"), was))
     for b in ROUND_BUILDS:
         rows[rc.target(*b).key].update(cta_lanes=b[1], **rc.occupancy(*b[:5], lease=b[5]))
     for b in STAMP_BUILDS:
@@ -1348,6 +1420,21 @@ def segment_pages(b) -> torch.Tensor:
     return (b.paged.pt.to(torch.int32) > 0).view(b._paged_segs, -1).sum(1)
 
 
+def paged_cell(dev, name: str, **paging):
+    """run_main_paged as phase main_pallas_paged_<name> on the first pool of
+    PAGED_POOLS that does not exhaust (a pool that does is printed); returns
+    (cluster, fields)."""
+    for pool in PAGED_POOLS if paging else (0,):
+        c, f = run_main_paged(dev, f"main_pallas_paged_{name}", pool, **paging)
+        if not f.get("paged_exhausted"):
+            return c, f
+        emit("main_pallas_paged_exhausted", run=name, pool_pages=pool,
+             paged_exhausted=f["paged_exhausted"])
+        del c
+        torch.cuda.empty_cache()
+    raise AssertionError(f"main_pallas_paged {name}: the pool exhausts at 65,536 pages")
+
+
 def check_main_paged(dev):
     """main_pallas_paged: the paged main path in-kernel (the default tile,
     3,072 lanes: 16 segments of 32 CUDA blocks a block), in-kernel at
@@ -1369,16 +1456,7 @@ def check_main_paged(dev):
              ("boundary", dict(paged=True), "round_kernel"),
              ("flat", {}, "round_kernel"))
     for name, paging, kernel in plans:
-        for pool in PAGED_POOLS if paging else (0,):
-            c, f = run_main_paged(dev, f"main_pallas_paged_{name}", pool, **paging)
-            if not f.get("paged_exhausted"):
-                break
-            emit("main_pallas_paged_exhausted", run=name, pool_pages=pool,
-                 paged_exhausted=f["paged_exhausted"])
-            del c
-            torch.cuda.empty_cache()
-        else:
-            raise AssertionError(f"main_pallas_paged {name}: the pool exhausts at 65,536 pages")
+        c, f = paged_cell(dev, name, **paging)
         c.check_no_errors()
         want = {k: (f["expected_launches"] if k == kernel else 0) for k in rc.KERNELS}
         want["joint_kernel"] = 0
@@ -1412,7 +1490,9 @@ def time_round_kernel_paged(c, phase: str, tiles=()) -> dict:
     (arguments packed once, a new epoch a launch) beside the plain version
     and the bytes bound: every input leaf read once and every output leaf
     written once, the page table, the pool and the segment words
-    included."""
+    included. At the cluster's segments, the build's stamp twin
+    (-DRAFT_STAMPS=1) on the same inputs (`stamps`: stamp_table, with the
+    wave facts)."""
     b = c.blocks[0]
     diet = b._diet
     m = b.metrics
@@ -1464,11 +1544,15 @@ def time_round_kernel_paged(c, phase: str, tiles=()) -> dict:
                                        iters=20),
                     plain_ms=cuda_ms(lambda: plr.round_kernel_ref(*args, **kw(1)), iters=3),
                 )
+            if tile == b._pallas_tile:
+                rows[kc]["stamps"] = stamp_launch(
+                    kern, args, kw(kc), rc.target(d, cta, diet, plan, stamps=True), segments,
+                    kc, want, f"{kern.name} stamps K={kc}")
             del go, outs, want
         by_tile[tile] = dict(rows[1], cta_lanes=cta, blocks_per_segment=tile // cta,
                              k8=rows[8])
     row = dict(by_tile[b._pallas_tile], tile_lanes=b._pallas_tile, lanes=n,
-               by_tile={str(t): {k: v for k, v in r.items() if k != "k8"}
+               by_tile={str(t): {k: v for k, v in r.items() if k not in ("k8", "stamps")}
                         | {"k8_ms_per_round": r["k8"]["ms_per_round"],
                            "k8_bound_ms": r["k8"]["bound_ms"]}
                         for t, r in by_tile.items()})
@@ -1501,10 +1585,11 @@ def chaos_plan(n: int, v: int, r0: int, groups: int = 4) -> dict:
                 heal_round=r0 + 2, reelect_round=never, recommit_round=never.copy())
 
 
-def chaos_paged_leaves(res) -> list:
-    """A chaos launch with paging's outputs as (name, array) leaves: the
-    carry and partials, the PagedLog, the probe columns."""
-    return carry_leaves(*res[:4]) + paged_leaves(res[4]) + probe_leaves(res[5])
+def paged_launch_leaves(res) -> list:
+    """A launch with paging's outputs as (name, array) leaves: the carry and
+    partials, the PagedLog and, of a chaos launch, the probe columns."""
+    return (carry_leaves(*res[:4]) + paged_leaves(res[4])
+            + (probe_leaves(res[5]) if len(res) > 5 else []))
 
 
 def probe_leaves(probes) -> list:
@@ -1883,7 +1968,7 @@ def check_round_kernel_chaos_paged(dev):
                             f"pool={pool} launch {i}")
                     synchronize(what)
                     want = plr.round_kernel_ref(*args, **kw)
-                    a, b = chaos_paged_leaves(got), chaos_paged_leaves(want)
+                    a, b = paged_launch_leaves(got), paged_launch_leaves(want)
                     bad = first_difference(a, b)
                     if bad is not None or interop.digest([x for _, x in a]) != interop.digest(
                         [x for _, x in b]
@@ -1992,13 +2077,17 @@ def stamp_table(rows: np.ndarray, kc: int, cta: int, sm_mhz: float) -> dict:
     cycles / MHz). Thread 0's boundaries partition each block's launch
     (start .. end), so the phases sum to its total; `rounds` is
     split per round (round_us) and the laps (each thread's cycles in a
-    part of lane_round, over the launch) are the block's mean a thread
+    part of a round, over the launch) are the block's mean a thread
     (median over blocks) and its slowest thread (max over blocks). From
     %globaltimer: each block's wait at the segment barrier
     (segment_wait_us), the spread of a segment's arrivals
     (segment_arrival_spread_us), a block's time start to end
     (block_globaltimer_us) and the launch's span, first start to last end
-    (span_us); sm_mhz_globaltimer is the SM clock those imply."""
+    (span_us); sm_mhz_globaltimer is the SM clock those imply. The wave
+    facts, from %globaltimer and the SM ids: late_blocks, the blocks that
+    started after the first block ended (a launch that fits the card at
+    once has none), and max_blocks_an_sm, the most blocks one SM held at
+    once."""
     st, laps = rc.stamp_fields()
     col = {name: rows[:, j].astype(np.float64) for j, name in enumerate(st)}
     base = rc.stamp_slots()
@@ -2038,9 +2127,24 @@ def stamp_table(rows: np.ndarray, kc: int, cta: int, sm_mhz: float) -> dict:
         span_us=float(gt["GT_END"].max() - gt["GT_START"].min()) / 1e3,
         sm_mhz_globaltimer=float(np.median(cyc["total"] / np.maximum(block_ns, 1) * 1e3)),
     )
+    out.update(wave_facts(gt["GT_START"], gt["GT_END"], col["SMID"]))
     if paged:
         out["segment_wait_us"] = mm((gt["GT_SEG_OUT"] - gt["GT_SEG_IN"]) / 1e3)
     return out
+
+
+def wave_facts(start, end, smid) -> dict:
+    """late_blocks and max_blocks_an_sm (stamp_table) of blocks that ran
+    [start, end) on SM smid: each SM's starts and ends swept in time order,
+    an end before a start at the same instant."""
+    most = 0
+    for sm in np.unique(smid):
+        on = smid == sm
+        held = 0
+        for _, step in sorted([(x, 1) for x in start[on]] + [(x, -1) for x in end[on]]):
+            held += step
+            most = max(most, held)
+    return dict(late_blocks=int((start > end.min()).sum()), max_blocks_an_sm=most)
 
 
 def stamp_launch(kern, args, kw, target, segments, kc, want, what) -> dict:
@@ -2055,7 +2159,7 @@ def stamp_launch(kern, args, kw, target, segments, kc, want, what) -> dict:
     go = raw_launch(kern, arr, nptr, cdims, flags, lag, target=target, segments=segments)
     go()
     synchronize(what)
-    bad = first_difference(chaos_paged_leaves(outs), chaos_paged_leaves(want))
+    bad = first_difference(paged_launch_leaves(outs), paged_launch_leaves(want))
     if bad is not None:
         raise AssertionError(f"{what}: first differing leaf {bad}")
     ms = cuda_ms(go, iters=50 if kc == 1 else 10)
@@ -2108,7 +2212,7 @@ def time_round_kernel_chaos_paged(c, phase: str) -> dict:
         go()
         synchronize(f"{kern.name} K={kc}")
         want = plr.round_kernel_ref(*args, **kw(kc))
-        bad = first_difference(chaos_paged_leaves(outs), chaos_paged_leaves(want))
+        bad = first_difference(paged_launch_leaves(outs), paged_launch_leaves(want))
         if bad is not None:
             raise AssertionError(f"{kern.name} K={kc} at the main path's shape: "
                                  f"first differing leaf {bad}")

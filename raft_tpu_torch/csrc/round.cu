@@ -45,20 +45,30 @@
 //   that packs narrower is clamped to its range with ERR_DIET_OVERFLOW on
 //   its lane, as store_carry then load_carry do. The rings stay in their
 //   slim dtypes in shared memory, so no value a round writes and reads
-//   back is clamped before the boundary.
+//   back is clamped before the boundary. Every value is in range when a
+//   round starts, so the boundary clamps the registers, the outbox and
+//   only the ring slots the round wrote (Mid).
 // - Shared memory, element e of lane t at [e * s + t]: the rings indexed
 //   by data (log window, inflights, ReadIndex queues; s = S, so a warp
 //   hits 32 banks whatever elements its threads pick), in their slim
-//   dtypes, which hold every value the reference stores there; and two
-//   fabric buffers (s = S + 1, so the routed reads of a group's V senders
-//   fall in distinct banks). About 790 B per lane at the bench shape: 96
-//   lanes a block, three blocks an SM.
-// - Fabric on-chip across the K rounds: lane g*V+j reads its inbound cell
-//   i straight from the outbox of lane g*V+i, slot j, with the mute cut
-//   applied to its own inbound cells (sender or receiver muted; the self
-//   slot passes through); round k reads buffer k % 2 and writes its outbox
-//   to the other, one __syncthreads() per round; only the last round's
-//   outbox is stored.
+//   dtypes, which hold every value the reference stores there; one fabric
+//   buffer (s = S + 1, so the routed reads of a group's V senders fall in
+//   distinct banks); and a staging column of V + 4 ints a lane (s = S) for
+//   the writes a round holds between its halves. About 550 B per lane at
+//   the bench shape: 96 lanes a block, four blocks (12 warps) an SM, so
+//   that a grid of 528 blocks runs in one wave.
+// - Fabric on-chip across the K rounds, in one buffer: lane g*V+j reads
+//   its inbound cell i straight from the outbox of lane g*V+i, slot j, with
+//   the mute cut applied to its own inbound cells (sender or receiver
+//   muted; the self slot passes through). A round runs in two halves
+//   (lane_read, lane_write) with a __syncthreads() between them and one
+//   after: the read half runs the round up to its last read of the inbox
+//   and holds the outbox writes it makes (which cells in registers, Mid;
+//   the values that are not the lane's term in its staging column), and
+//   the write half clears the lane's own cells, writes the held ones and
+//   runs the rest of the round into them. A group of V lanes straddles
+//   warps, so the barrier is the block's. Only the last round's outbox is
+//   stored.
 // - Device memory: each thread moves its own lane's rows (16-byte
 //   accesses where a row allows; a warp's 32 neighbouring rows use every
 //   sector it fetches) and writes its own shared-memory columns, so the
@@ -100,13 +110,15 @@
 //   (wipe_lane); its inbound cells are cut by the partition masks, a down
 //   endpoint and one drop draw per channel and edge, as bits of a mask per
 //   channel read through the inbox (InFab), so that no sender's cell is
-//   written; a down or skipped lane does not tick; after the round, cells
-//   of the lane's previous outbox (the buffer it read this round) fill
-//   empty cells of its new one where the duplicate draw fires, before the
-//   storage boundary; and the recovery probe reads its group's
-//   has-a-leader and committed-past-base flags from a byte a lane, written
-//   before the round's barrier and read after it, then a second barrier
-//   before the partials row takes the block's recounts. The draws are
+//   written; a down or skipped lane does not tick; the write half clears a
+//   peer cell at its first write (Round::touch), so that after the round a
+//   cell it did not write still holds the lane's previous outbox, which
+//   stays where the duplicate draw fires and is cleared elsewhere
+//   (chaos_end), before the storage boundary; and the recovery probe
+//   reads its group's has-a-leader and committed-past-base flags from a
+//   byte a lane, written before the round's last barrier and read after
+//   it, then one more barrier before the partials row takes the block's
+//   recounts. The draws are
 //   chaos/device.py's counter-based hash on the global lane (i), so
 //   blocks and K do not change them. No knob changes inside a launch, so
 //   a lane reads its crash, restart and partition columns once, at its
@@ -150,9 +162,9 @@
 //   none, so that a phase ends with the block's slowest thread),
 //   %globaltimer where blocks must line up (start, end, around the
 //   segment barrier), its SM, and the laps, each thread's cycles in the
-//   parts of lane_round (chaos_begin, the round proper, chaos_dup with the
-//   probe flag, the storage boundary, lane_probe) summed and maxed over
-//   the block. A stamp marks when thread 0 issued a phase, not when its
+//   parts of a round (chaos_begin, the round proper in both halves,
+//   chaos_end with the probe flag, the storage boundary, lane_probe)
+//   summed and maxed over the block. A stamp marks when thread 0 issued a phase, not when its
 //   loads landed: a load's latency shows in the phase that first uses it.
 // - The source is laid out as functions that mirror the Python modules
 //   (ops/log.py, ops/progress.py, ops/step.py, ops/fused.py), so a leaf
@@ -597,7 +609,7 @@ constexpr long long kMaxMargin = 1 << 20;  // the lease margins a launch takes
 // at each phase boundary, after a block barrier where the phase has none of
 // its own (so a phase ends with the block's slowest thread), %globaltimer
 // (ns) where blocks must line up, and
-// the in-round laps, each thread's cycles in a phase of lane_round summed
+// the in-round laps, each thread's cycles in a part of a round summed
 // over the launch, reduced over the block (sum and max); round k's clock
 // after its last barrier at kStampSlots + k.
 enum : int {
@@ -605,8 +617,8 @@ enum : int {
   ST_SCAN, ST_GT_SEG_IN, ST_GT_SEG_OUT, ST_SEGMENT, ST_PAGE_OUT, ST_POOL, ST_END, ST_GT_END,
   ST_LAPS,
 };
-// the laps: chaos_begin; the round proper (clear_fab, ops, fused_round_lane,
-// the lease tail); chaos_dup and the probe flag; the storage boundary
+// the laps: chaos_begin; the round proper (round_read, and clear_fab, ops,
+// round_write, the lease tail); chaos_end and the probe flag; the storage boundary
 // (roundtrip_lane); and lane_probe with the recounts, after the round's
 // barrier
 enum : int { LAP_BEGIN, LAP_ROUND, LAP_DUP, LAP_BOUNDARY, LAP_PROBE, kLaps };
@@ -750,18 +762,40 @@ RAFT_HD constexpr long long pad16(long long x) { return (x + 15) & ~15LL; }
 // the paged build's shared ints after the warp totals of its block scan
 enum : int { SC_LID = kMaxCta / 32, SC_MOVED, SC_PREFIX, SC_TOTAL, kScanSlots };
 
+// A lane's staging column (Held): the values of the outbox writes its
+// round's read half holds for its write half, int32 elements in this
+// order, the vote responses' terms last (one a cell)
+enum : int { HV_REP_INDEX, HV_REP_HINT, HV_REP_LOG_TERM, HV_HB_CONTEXT, HV_VR_TERM };
+constexpr int kStage = HV_VR_TERM + V;
+
+// A thread's view of a shared-memory column: element e at p[e * s].
+template <typename T>
+struct Col {
+  T *p;
+  int s;
+  RAFT_HD T &operator[](int e) const { return p[(long long)e * s]; }
+};
+
+// [X][Y] elements: row x is the Col at p + x * so, element stride si.
+template <typename T>
+struct Col2 {
+  T *p;
+  int so, si;
+  RAFT_HD Col<T> operator[](int x) const { return Col<T>{p + (long long)x * so, si}; }
+};
+
 // Byte offsets into the block's buffer, compile-time constants. Element e
 // of lane t of a leaf in shared memory sits at column[e * s + t]: s = sr =
-// S for the rings, s = sf = S + 1 for the two fabric buffers.
+// S for the rings and the staging columns, s = sf = S + 1 for the fabric.
 struct Block {
   unsigned char *base;
   static constexpr int sr = S, sf = S + 1;
   static constexpr long long ring32 = 0;
   static constexpr long long ring8 = ring32 + pad16(4LL * kRing32 * sr);
-  static constexpr long long fab0 = ring8 + pad16((long long)kRing8 * sr);
-  static constexpr long long fab32_bytes = pad16(4LL * kFab32 * sf);
-  static constexpr long long fab_bytes = fab32_bytes + pad16((long long)kFab8 * sf);
-  static constexpr long long acc0 = fab0 + 2 * fab_bytes;
+  static constexpr long long fab32 = ring8 + pad16((long long)kRing8 * sr);
+  static constexpr long long fab8 = fab32 + pad16(4LL * kFab32 * sf);
+  static constexpr long long stage0 = fab8 + pad16((long long)kFab8 * sf);
+  static constexpr long long acc0 = stage0 + pad16(4LL * kStage * sr);
   static constexpr long long acc_bytes = pad16(4LL * kAccN);
   // the paged build's warp totals of its block scan, then the block's
   // logical id and its segment's moved, prefix and total (kScanSlots)
@@ -778,9 +812,7 @@ struct Block {
   static constexpr long long lap0 = csc0 + (RAFT_CHAOS ? 16 : 0);
   static constexpr long long bytes = lap0 + (RAFT_STAMPS ? pad16(8LL * kLaps) : 0);
 
-  // fabric buffer b (0 or 1): its 32-bit and 8-bit regions
-  RAFT_HD long long fab32(int b) const { return fab0 + b * fab_bytes; }
-  RAFT_HD long long fab8(int b) const { return fab32(b) + fab32_bytes; }
+  RAFT_HD Col<int> stage(int t) const { return Col<int>{(int *)(base + stage0) + t, sr}; }
   RAFT_HD int *acc(int b) const { return (int *)(base + acc0 + b * acc_bytes); }
   RAFT_HD int *scan() const { return (int *)(base + scan0); }
   RAFT_HD uint8_t *flag() const { return base + flag0; }
@@ -805,29 +837,13 @@ RAFT_HD ST *ring_col(const Block &B) {
   return col_at<ST>(B, B.ring32, B.ring8, o32, o8, B.sr);
 }
 
-// column of fabric leaf K in fabric buffer b
+// column of fabric leaf K in the fabric
 template <int K, typename ST>
-RAFT_HD ST *fab_col(const Block &B, int b) {
+RAFT_HD ST *fab_col(const Block &B) {
   constexpr int o32 = set_off(kFabLeaves, K, SET_FAB, true);
   constexpr int o8 = set_off(kFabLeaves, K, SET_FAB, false);
-  return col_at<ST>(B, B.fab32(b), B.fab8(b), o32, o8, B.sf);
+  return col_at<ST>(B, B.fab32, B.fab8, o32, o8, B.sf);
 }
-
-// A thread's view of a shared-memory column: element e at p[e * s].
-template <typename T>
-struct Col {
-  T *p;
-  int s;
-  RAFT_HD T &operator[](int e) const { return p[(long long)e * s]; }
-};
-
-// [X][Y] elements: row x is the Col at p + x * so, element stride si.
-template <typename T>
-struct Col2 {
-  T *p;
-  int so, si;
-  RAFT_HD Col<T> operator[](int x) const { return Col<T>{p + (long long)x * so, si}; }
-};
 
 // ---------------------------------------------------------------------------
 // a lane's row of an [N, X] leaf in device memory, moved as a whole: in
@@ -903,21 +919,21 @@ RAFT_HD void col_to_row(T *g, long long i, const C *col, int s) {
   RowIO<T, X>::store(g + i * X, e);
 }
 
-// lane t's outbox row of fabric leaf K: in from the input fabric into
-// buffer 0, or out from buffer b to the output fabric
+// lane t's outbox row of fabric leaf K: in from the input fabric, or out
+// to the output fabric
 template <int K, typename ST, int KIND>
-RAFT_HD void fab_row(const Args &a, const Block &B, long long i, int t, int b, bool in) {
+RAFT_HD void fab_row(const Args &a, const Block &B, long long i, int t, bool in) {
   using T = typename Store<G_FAB, K, ST>::T;
-  ST *col = fab_col<K, ST>(B, in ? 0 : b) + t;
+  ST *col = fab_col<K, ST>(B) + t;
   if (in)
     row_to_col<T, elems(KIND)>((const T *)a.p[P_FAB_IN + K], i, col, B.sf);
   else
     col_to_row<T, elems(KIND)>((T *)a.p[P_FAB_OUT + K], i, col, B.sf);
 }
 
-RAFT_HD void fab_rows(const Args &a, const Block &B, long long i, int t, int b, bool in) {
+RAFT_HD void fab_rows(const Args &a, const Block &B, long long i, int t, bool in) {
 #define RAFT_FAB_ROW(name, dt, shape) \
-  fab_row<FL_##name, RAFT_ST_##dt, K_##shape>(a, B, i, t, b, in);
+  fab_row<FL_##name, RAFT_ST_##dt, K_##shape>(a, B, i, t, in);
   RAFT_FABRIC_FIELDS(RAFT_FAB_ROW)
 #undef RAFT_FAB_ROW
 }
@@ -970,41 +986,41 @@ struct Fab {
 
 #undef RAFT_FAB_MEMBER
 
-// lane t's own cells (its outbox) in buffer b
+// lane t's own cells (its outbox)
 template <int K, typename ST>
-RAFT_HD void bind_out(Col<ST> &x, const Block &B, int b, int t) {
-  x = Col<ST>{fab_col<K, ST>(B, b) + t, B.sf};
+RAFT_HD void bind_out(Col<ST> &x, const Block &B, int t) {
+  x = Col<ST>{fab_col<K, ST>(B) + t, B.sf};
 }
 template <int K, typename ST>
-RAFT_HD void bind_out(Col2<ST> &x, const Block &B, int b, int t) {
-  x = Col2<ST>{fab_col<K, ST>(B, b) + t, E * B.sf, B.sf};
+RAFT_HD void bind_out(Col2<ST> &x, const Block &B, int t) {
+  x = Col2<ST>{fab_col<K, ST>(B) + t, E * B.sf, B.sf};
 }
 
 // the cells sent to lane t = base + me by the lanes of its group: sender
 // i's slot me, so element i steps over threads
 template <int K, typename ST>
-RAFT_HD void bind_in(Col<ST> &x, const Block &B, int b, int base, int me, int kind) {
-  ST *col = fab_col<K, ST>(B, b);
+RAFT_HD void bind_in(Col<ST> &x, const Block &B, int base, int me, int kind) {
+  ST *col = fab_col<K, ST>(B);
   x = kind == K_LANE ? Col<ST>{col + base + me, B.sf} : Col<ST>{col + (long long)me * B.sf + base, 1};
 }
 template <int K, typename ST>
-RAFT_HD void bind_in(Col2<ST> &x, const Block &B, int b, int base, int me, int) {
-  x = Col2<ST>{fab_col<K, ST>(B, b) + (long long)me * E * B.sf + base, 1, B.sf};
+RAFT_HD void bind_in(Col2<ST> &x, const Block &B, int base, int me, int) {
+  x = Col2<ST>{fab_col<K, ST>(B) + (long long)me * E * B.sf + base, 1, B.sf};
 }
 
-RAFT_HD Fab outbox(const Block &B, int b, int t) {
+RAFT_HD Fab outbox(const Block &B, int t) {
   Fab f;
-#define RAFT_BIND_OUT(name, dt, shape) bind_out<FL_##name, RAFT_ST_##dt>(f.name, B, b, t);
+#define RAFT_BIND_OUT(name, dt, shape) bind_out<FL_##name, RAFT_ST_##dt>(f.name, B, t);
   RAFT_FABRIC_FIELDS(RAFT_BIND_OUT)
 #undef RAFT_BIND_OUT
   return f;
 }
 
-RAFT_HD Fab inbox(const Block &B, int b, int t) {
+RAFT_HD Fab inbox(const Block &B, int t) {
   Fab f;
   const int me = t % V, base = t - me;
 #define RAFT_BIND_IN(name, dt, shape) \
-  bind_in<FL_##name, RAFT_ST_##dt>(f.name, B, b, base, me, K_##shape);
+  bind_in<FL_##name, RAFT_ST_##dt>(f.name, B, base, me, K_##shape);
   RAFT_FABRIC_FIELDS(RAFT_BIND_IN)
 #undef RAFT_BIND_IN
   return f;
@@ -1170,6 +1186,11 @@ RAFT_HD void store_leaf(const Col2<ST> &x, const Args &a, long long i) {
 // narrower (the lane's registers, its ring columns and its outbox cells)
 // clamped to its packed range, with ERR_DIET_OVERFLOW set on the lane
 // where one moved. Bitsets hold any bool, and error_bits is never packed.
+// Every value of the carry is in its packed range when a round starts (it
+// was loaded or paged in from packed rows, or clamped at the last
+// boundary), so a clamp of a value the round did not write is a no-op:
+// the rings' slots are clamped only where the round wrote them (Mid), the
+// registers and the outbox cells all.
 
 template <typename T>
 struct Range;  // the inclusive value range of a packed dtype (state.py _DIET_RANGE)
@@ -1207,24 +1228,16 @@ RAFT_HD void roundtrip(CT (&x)[V], bool &ovf) {
     if constexpr (StateLeaf<K, ST>::narrow) clamp_to<typename StateLeaf<K, ST>::T>(x[j], ovf);
   }
 }
+// the rings: only the slots the round wrote (clamp_written)
 template <int K, typename ST>
-RAFT_HD void roundtrip(Col<ST> &x, bool &ovf) {
-  if constexpr (StateLeaf<K, ST>::narrow) {
-    RAFT_UNROLL
-    for (int e = 0; e < elems(state_kind(K)); ++e)
-      clamp_to<typename StateLeaf<K, ST>::T>(x[e], ovf);
-  }
-}
+RAFT_HD void roundtrip(Col<ST> &, bool &) {}
 template <int K, typename ST>
-RAFT_HD void roundtrip(Col2<ST> &x, bool &ovf) {
-  if constexpr (StateLeaf<K, ST>::narrow) {
-    constexpr int inner = state_kind(K) == K_INFL ? F : V;
-    RAFT_UNROLL
-    for (int o = 0; o < elems(state_kind(K)) / inner; ++o) {
-      RAFT_UNROLL
-      for (int e = 0; e < inner; ++e) clamp_to<typename StateLeaf<K, ST>::T>(x[o][e], ovf);
-    }
-  }
+RAFT_HD void roundtrip(Col2<ST> &, bool &) {}
+
+// a slot of ring leaf K that the round wrote
+template <int K, typename ST>
+RAFT_HD void clamp_slot(ST &x, bool &ovf) {
+  if constexpr (StateLeaf<K, ST>::narrow) clamp_to<typename StateLeaf<K, ST>::T>(x, ovf);
 }
 
 // the lane's outbox cells of fabric leaf K (fabric_diet_overflow, then
@@ -1261,18 +1274,6 @@ RAFT_HD void store_lane(const Lane &L, const Args &a, long long i) {
 #undef RAFT_STORE
 }
 
-// the lane's carry and its outbox `out` after a round
-RAFT_HD void roundtrip_lane(Lane &L, const Fab &out) {
-  bool ovf = false;
-#define RAFT_RT(name, dt, shape) roundtrip<SL_##name, RAFT_ST_##dt>(L.name, ovf);
-  RAFT_STATE_FIELDS(RAFT_RT)
-#undef RAFT_RT
-#define RAFT_CLAMP(name, dt, shape) clamp_cells<FL_##name, RAFT_ST_##dt, K_##shape>(out.name, ovf);
-  RAFT_FABRIC_FIELDS(RAFT_CLAMP)
-#undef RAFT_CLAMP
-  if (ovf) L.error_bits |= ERR_DIET_OVERFLOW;
-}
-
 RAFT_HD void load_cfg(Cfg &obj, const Args &a, long long i) {
 #define RAFT_LOAD_CFG(name, dt, shape)                                                   \
   obj.name = (RAFT_CT_##dt)(                                                             \
@@ -1298,9 +1299,15 @@ RAFT_HD int fmod_pos(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-RAFT_HD void clear_fab(const Fab &f) {
-  RAFT_UNROLL
-  for (int j = 0; j < V; ++j) {
+// The channels of the fabric, in table order; a cell of the outbox is
+// (channel, j), the self channel's one cell j = 0.
+enum : int { CH_REP, CH_HB, CH_VOTE, CH_VRESP, CH_SELF };
+
+// cell j of channel CH of outbox f cleared: its kind MSG_NONE, every other
+// field 0
+template <int CH>
+RAFT_HD void clear_cell(const Fab &f, int j) {
+  if constexpr (CH == CH_REP) {
     f.rep_kind[j] = MSG_NONE;
     f.rep_term[j] = f.rep_index[j] = f.rep_log_term[j] = f.rep_commit[j] = 0;
     f.rep_reject[j] = 0;
@@ -1309,23 +1316,137 @@ RAFT_HD void clear_fab(const Fab &f) {
     for (int k = 0; k < E; ++k)
       f.rep_ent_term[j][k] = f.rep_ent_type[j][k] = f.rep_ent_bytes[j][k] = 0;
     f.rep_snap_index[j] = f.rep_snap_term[j] = 0;
+  } else if constexpr (CH == CH_HB) {
     f.hb_kind[j] = MSG_NONE;
     f.hb_term[j] = f.hb_commit[j] = f.hb_context[j] = 0;
+  } else if constexpr (CH == CH_VOTE) {
     f.vote_kind[j] = MSG_NONE;
     f.vote_term[j] = f.vote_index[j] = f.vote_log_term[j] = 0;
     f.vote_reject[j] = 0;
     f.vote_context[j] = 0;
+  } else if constexpr (CH == CH_VRESP) {
     f.vresp_kind[j] = MSG_NONE;
     f.vresp_term[j] = 0;
     f.vresp_reject[j] = 0;
+  } else {
+    f.self_kind[0] = MSG_NONE;
+    f.self_term[0] = f.self_index[0] = 0;
   }
-  f.self_kind[0] = MSG_NONE;
-  f.self_term[0] = f.self_index[0] = 0;
+}
+
+RAFT_HD void clear_fab(const Fab &f) {
+  RAFT_UNROLL
+  for (int j = 0; j < V; ++j) {
+    clear_cell<CH_REP>(f, j);
+    clear_cell<CH_HB>(f, j);
+    clear_cell<CH_VOTE>(f, j);
+    clear_cell<CH_VRESP>(f, j);
+  }
+  clear_cell<CH_SELF>(f, 0);
 }
 
 RAFT_HD void clear_ops(Ops &o) {
   o.hup = o.forget = o.beat = false;
   o.prop_n = o.prop_bytes = o.transfer_to = o.read_ctx = o.prop_cc = 0;
+}
+
+// a bit set of N elements
+template <bool Narrow>
+struct MaskT {
+  using T = uint32_t;
+};
+template <>
+struct MaskT<false> {
+  using T = uint64_t;
+};
+template <int N>
+using Mask = typename MaskT<(N <= 32)>::T;
+
+RAFT_HD int low_bit(uint64_t m) {  // the lowest set bit of m != 0
+#ifdef __CUDA_ARCH__
+  return __ffsll((long long)m) - 1;
+#else
+  return __builtin_ctzll(m);
+#endif
+}
+
+// What a lane's round keeps from its read half to its write half. The
+// block has one fabric buffer: a round reads its inbox (the senders' cells
+// of their last outboxes) in its read half, and the block's barrier
+// separates that from its write half, which writes its outbox in the same
+// cells. The outbox writes the read half makes are held until then (the
+// cells in hc and hm, the values in the lane's staging column, Held). The
+// host build keeps one a lane between its loops over the block's lanes.
+enum : uint32_t {  // Mid::f
+  MF_HUP = 1, MF_BEAT = 2, MF_CQ = 4, MF_TON = 8, MF_CAND = 16, MF_VR = 32,
+  MF_TICK = 64, MF_DOWN = 128,  // the chaos build's tick mask and down lane
+};
+enum : int {  // bit offsets of the held cells: Mid::hc, then Mid::hm
+  HC_PING = 0, HC_TON = 8, HC_VR = 16, HC_VR_REJ = 24,
+  HM_VR_PV = 0, HM_REP_CELL = 8, HM_REP_REJ = 12, HM_HB_CELL = 16,
+};
+struct Mid {
+  uint32_t f;       // MF_* facts of the read half
+  uint32_t sel;     // want_send: bit j send_sel[j], bit 8 + j send_sie[j]
+  uint32_t hc, hm;  // the held writes: V-bit sets of cells (HC_*), and (HM_*)
+                    // the vote responses' pre-vote kinds, the cells + 1 of the
+                    // append and heartbeat responses, and the append reject
+  int lead0, committed0;  // the metrics' baselines of the round
+#if RAFT_CHAOS
+  uint32_t wr;  // the peer cells the write half wrote, bit 8 * channel + j (Round::touch)
+#endif
+#if RAFT_DIET
+  Mask<W> wlog;       // the ring slots the round wrote: log window slot s,
+  Mask<V * F> winfl;  // inflight j * F + f,
+  uint32_t wread;     // ro q (bit q) and rs q (bit 8 + q)
+#endif
+};
+
+// the ring slots the round wrote, clamped (the boundary's note above)
+RAFT_HD void clamp_written(Lane &L, const Mid &mid, bool &ovf) {
+#if RAFT_DIET
+  for (Mask<W> m = mid.wlog; m; m &= m - 1) {
+    const int s = low_bit(m);
+    clamp_slot<SL_log_term>(L.log_term[s], ovf);
+    clamp_slot<SL_log_type>(L.log_type[s], ovf);
+    clamp_slot<SL_log_bytes>(L.log_bytes[s], ovf);
+  }
+  for (Mask<V * F> m = mid.winfl; m; m &= m - 1) {
+    const int x = low_bit(m);
+    clamp_slot<SL_infl_index>(L.infl_index[x / F][x % F], ovf);
+    clamp_slot<SL_infl_bytes>(L.infl_bytes[x / F][x % F], ovf);
+  }
+  for (uint32_t m = mid.wread & 0xFFu; m; m &= m - 1) {
+    const int q = low_bit(m);
+    clamp_slot<SL_ro_ctx>(L.ro_ctx[q], ovf);
+    clamp_slot<SL_ro_from>(L.ro_from[q], ovf);
+    clamp_slot<SL_ro_index>(L.ro_index[q], ovf);
+    clamp_slot<SL_ro_seq>(L.ro_seq[q], ovf);
+  }
+  for (uint32_t m = mid.wread >> 8; m; m &= m - 1) {
+    const int q = low_bit(m);
+    clamp_slot<SL_rs_ctx>(L.rs_ctx[q], ovf);
+    clamp_slot<SL_rs_index>(L.rs_index[q], ovf);
+  }
+#else
+  (void)L;
+  (void)mid;
+  (void)ovf;
+#endif
+}
+
+// the lane's carry and its outbox `out` after a round: the registers, the
+// ring slots the round wrote and the outbox cells
+RAFT_HD void roundtrip_lane(Lane &L, const Fab &out, const Mid &mid) {
+  bool ovf = false;
+#define RAFT_RT(name, dt, shape) roundtrip<SL_##name, RAFT_ST_##dt>(L.name, ovf);
+  RAFT_STATE_FIELDS(RAFT_RT)
+#undef RAFT_RT
+  clamp_written(L, mid, ovf);
+#define RAFT_CLAMP(name, dt, shape) clamp_cells<FL_##name, RAFT_ST_##dt, K_##shape>(out.name, ovf);
+  RAFT_FABRIC_FIELDS(RAFT_CLAMP)
+#undef RAFT_CLAMP
+  if (ovf) L.error_bits |= ERR_DIET_OVERFLOW;
 }
 
 }  // namespace raft
@@ -1355,34 +1476,123 @@ RAFT_HD int draw_timeout(uint32_t rng, int election_tick) {
 }
 RAFT_HD uint32_t rng_next(uint32_t rng) { return rng * 1664525u + 1013904223u; }
 
-// One lane's round. Member functions mirror the Python functions of the
-// same name; every masked tensor update becomes `if (mask)` on this lane.
+// One lane's round, in its read half (out null: its outbox writes are held
+// in mid and the staging column) or its write half (out the lane's
+// outbox). Member functions mirror the Python functions of the same name;
+// every masked tensor update becomes `if (mask)` on this lane.
 struct Round {
   Lane &L;
   const Cfg &c;
-  const InFab &in;
-  const Fab &out;
+  Mid &mid;
+  const Fab *out;
+  Col<int> stage;  // the lane's staging column (Held values, HV_*)
   int ss;          // self slot (step.self_slot), -1 when untracked
   bool is_self[V];
-  bool send_sel[V], send_sie[V];
 
-  RAFT_HD Round(Lane &l, const Cfg &cf, const InFab &inb, const Fab &o)
-      : L(l), c(cf), in(inb), out(o) {
+  RAFT_HD Round(Lane &l, const Cfg &cf, Mid &m, const Fab *o, Col<int> st)
+      : L(l), c(cf), mid(m), out(o), stage(st) {
     // step.find_slot(state, state.id): the first hot slot
     ss = -1;
     RAFT_UNROLL
     for (int j = V - 1; j >= 0; --j)
       if (L.prs_id[j] == L.id && L.prs_id[j] != 0) ss = j;
     RAFT_UNROLL
-    for (int j = 0; j < V; ++j) {
-      is_self[j] = j == ss;
-      send_sel[j] = send_sie[j] = false;
-    }
+    for (int j = 0; j < V; ++j) is_self[j] = j == ss;
   }
 
   RAFT_HD bool voter(int j) const { return L.voters_in[j] || L.voters_out[j]; }
   RAFT_HD void err(bool cond, int bit) {
     if (cond) L.error_bits |= bit;
+  }
+
+  // the diet build's record of the ring slots the round writes (Mid)
+  RAFT_HD void wrote_log(int s) {
+#if RAFT_DIET
+    mid.wlog |= Mask<W>(1) << s;
+#else
+    (void)s;
+#endif
+  }
+  RAFT_HD void wrote_infl(int j, int f) {
+#if RAFT_DIET
+    mid.winfl |= Mask<V * F>(1) << (j * F + f);
+#else
+    (void)j, (void)f;
+#endif
+  }
+  RAFT_HD void wrote_read(int bit) {  // ro q: q; rs q: 8 + q
+#if RAFT_DIET
+    mid.wread |= 1u << bit;
+#else
+    (void)bit;
+#endif
+  }
+
+  // A write of the write half to peer cell j of channel CH. The chaos
+  // build clears a cell at its first write, recorded in mid.wr (the other
+  // builds clear the outbox before the write half): until then it holds
+  // the last outbox's message, which chaos_end may redeliver.
+  template <int CH>
+  RAFT_HD void touch(int j) {
+#if RAFT_CHAOS
+    const uint32_t bit = 1u << (8 * CH + j);
+    if (!(mid.wr & bit)) clear_cell<CH>(*out, j);
+    mid.wr |= bit;
+#else
+    (void)j;
+#endif
+  }
+
+  // ---- the read half's outbox writes, held (Mid::hc, hm, the stage) ----
+
+  RAFT_HD void hold_vote_resp(int i, bool pv, bool reject, int term) {
+    mid.hc |= (1u << (HC_VR + i)) | (reject ? 1u << (HC_VR_REJ + i) : 0u);
+    if (pv) mid.hm |= 1u << (HM_VR_PV + i);
+    stage[HV_VR_TERM + i] = term;
+  }
+
+  // the held writes into the outbox, in the order the read half made them
+  RAFT_HD void flush_held() {
+    const uint32_t hc = mid.hc, hm = mid.hm;
+    const Fab &o = *out;
+    RAFT_UNROLL
+    for (int j = 0; j < V; ++j) {
+      if ((hc >> (HC_PING + j)) & 1u) {
+        touch<CH_REP>(j);
+        o.rep_kind[j] = MSG_APP_RESP;
+        o.rep_term[j] = L.term;
+      }
+      if ((hc >> (HC_VR + j)) & 1u) {
+        touch<CH_VRESP>(j);
+        o.vresp_kind[j] = (hm >> (HM_VR_PV + j)) & 1u ? MSG_PRE_VOTE_RESP : MSG_VOTE_RESP;
+        o.vresp_term[j] = stage[HV_VR_TERM + j];
+        if ((hc >> (HC_VR_REJ + j)) & 1u) o.vresp_reject[j] = true;
+      }
+      if ((hc >> (HC_TON + j)) & 1u) {
+        touch<CH_VOTE>(j);
+        o.vote_kind[j] = MSG_TIMEOUT_NOW;
+        o.vote_term[j] = L.term;
+      }
+    }
+    const int rj = (int)((hm >> HM_REP_CELL) & 15u) - 1;
+    if (rj >= 0) {
+      touch<CH_REP>(rj);
+      o.rep_kind[rj] = MSG_APP_RESP;
+      o.rep_term[rj] = L.term;
+      o.rep_index[rj] = stage[HV_REP_INDEX];
+      if ((hm >> HM_REP_REJ) & 1u) {
+        o.rep_reject[rj] = true;
+        o.rep_reject_hint[rj] = stage[HV_REP_HINT];
+        o.rep_log_term[rj] = stage[HV_REP_LOG_TERM];
+      }
+    }
+    const int hj = (int)((hm >> HM_HB_CELL) & 15u) - 1;
+    if (hj >= 0) {
+      touch<CH_HB>(hj);
+      o.hb_kind[hj] = MSG_HEARTBEAT_RESP;
+      o.hb_term[hj] = L.term;
+      o.hb_context[hj] = stage[HV_HB_CONTEXT];
+    }
   }
 
   // ---- ops/log.py ----------------------------------------------------
@@ -1442,6 +1652,7 @@ struct Round {
           L.log_term[s] = et[k];
           L.log_type[s] = ety[k];
           L.log_bytes[s] = eb[k];
+          wrote_log(s);
         }
       }
     }
@@ -1601,6 +1812,7 @@ struct Round {
     const int pos = fmod_pos(L.infl_start[j] + L.infl_count[j], F);
     L.infl_index[j][pos] = index;
     L.infl_bytes[j][pos] = bytes;
+    wrote_infl(j, pos);
     L.infl_count[j] += 1;
     L.infl_total_bytes[j] += bytes;
   }
@@ -1691,8 +1903,7 @@ struct Round {
   }
 
   RAFT_HD void want_send(int j, bool cell, bool sie) {
-    send_sel[j] = send_sel[j] || cell;
-    send_sie[j] = send_sie[j] || (cell && sie);
+    mid.sel |= (cell ? 1u << j : 0u) | (cell && sie ? 1u << (8 + j) : 0u);
   }
 
   // ---- ops/step.py ---------------------------------------------------
@@ -1764,9 +1975,9 @@ struct Round {
 
   RAFT_HD void put_self(bool mask, int type, int term, int index) {
     if (!mask) return;
-    out.self_kind[0] = type;
-    out.self_term[0] = term;
-    out.self_index[0] = index;
+    out->self_kind[0] = type;
+    out->self_term[0] = term;
+    out->self_index[0] = index;
   }
 
   // leader local append + self-ack; entry terms are the lane's term
@@ -1809,7 +2020,7 @@ struct Round {
     const int send_st = has_avail ? L.avail_snap_term : L.snap_term;
     RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
-      bool sel = send_sel[j] && L.prs_id[j] != 0 && !is_self[j] && !is_paused(j);
+      bool sel = ((mid.sel >> j) & 1u) && L.prs_id[j] != 0 && !is_self[j] && !is_paused(j);
       const int prev = L.pr_next[j] - 1;
       const int prev_term = term_at(prev);
       const bool throttled = L.pr_state[j] == REPLICATE && inflights_full(j);
@@ -1834,30 +2045,33 @@ struct Round {
         if (k >= n_send) et[k] = ety[k] = eb[k] = 0;
         sent_bytes += eb[k];
       }
-      sel = sel && (n_send > 0 || send_sie[j]);
+      sel = sel && (n_send > 0 || ((mid.sel >> (8 + j)) & 1u));
       const bool need_snap = prev < L.snap_index;
       const bool snap_sel =
           sel && need_snap && L.pr_recent_active[j] && !L.snap_unavailable;
       const bool app_sel = sel && !need_snap;
       become_snapshot(j, snap_sel, send_si);
+      const Fab &o = *out;
       if (snap_sel) {
-        out.rep_kind[j] = MSG_SNAP;
-        out.rep_term[j] = L.term;
-        out.rep_snap_index[j] = send_si;
-        out.rep_snap_term[j] = send_st;
+        touch<CH_REP>(j);
+        o.rep_kind[j] = MSG_SNAP;
+        o.rep_term[j] = L.term;
+        o.rep_snap_index[j] = send_si;
+        o.rep_snap_term[j] = send_st;
       }
       if (app_sel) {
-        out.rep_kind[j] = MSG_APP;
-        out.rep_term[j] = L.term;
-        out.rep_index[j] = prev;
-        out.rep_log_term[j] = prev_term;
-        out.rep_commit[j] = L.committed;
-        out.rep_n_ents[j] = n_send;
+        touch<CH_REP>(j);
+        o.rep_kind[j] = MSG_APP;
+        o.rep_term[j] = L.term;
+        o.rep_index[j] = prev;
+        o.rep_log_term[j] = prev_term;
+        o.rep_commit[j] = L.committed;
+        o.rep_n_ents[j] = n_send;
         RAFT_UNROLL
         for (int k = 0; k < E; ++k) {
-          out.rep_ent_term[j][k] = et[k];
-          out.rep_ent_type[j][k] = ety[k];
-          out.rep_ent_bytes[j][k] = eb[k];
+          o.rep_ent_term[j][k] = et[k];
+          o.rep_ent_type[j][k] = ety[k];
+          o.rep_ent_bytes[j][k] = eb[k];
         }
       }
       update_on_entries_send(j, app_sel, n_send, sent_bytes);
@@ -1868,10 +2082,11 @@ struct Round {
     RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       if (!(mask && L.prs_id[j] != 0 && !is_self[j])) continue;
-      out.hb_kind[j] = MSG_HEARTBEAT;
-      out.hb_term[j] = L.term;
-      out.hb_commit[j] = imin(L.pr_match[j], L.committed);
-      out.hb_context[j] = ctx;
+      touch<CH_HB>(j);
+      out->hb_kind[j] = MSG_HEARTBEAT;
+      out->hb_term[j] = L.term;
+      out->hb_commit[j] = imin(L.pr_match[j], L.committed);
+      out->hb_context[j] = ctx;
     }
   }
 
@@ -1891,11 +2106,12 @@ struct Round {
     RAFT_UNROLL
     for (int j = 0; j < V; ++j) {
       if (!(mask && voter(j) && !is_self[j])) continue;
-      out.vote_kind[j] = vote_t;
-      out.vote_term[j] = ask_term;
-      out.vote_index[j] = L.last;
-      out.vote_log_term[j] = lt;
-      out.vote_context[j] = ctype == TRANSFER ? TRANSFER : 0;
+      touch<CH_VOTE>(j);
+      out->vote_kind[j] = vote_t;
+      out->vote_term[j] = ask_term;
+      out->vote_index[j] = L.last;
+      out->vote_log_term[j] = lt;
+      out->vote_context[j] = ctype == TRANSFER ? TRANSFER : 0;
     }
   }
 
@@ -1906,44 +2122,38 @@ struct Round {
     return ok;
   }
 
-  // put_reply of a MsgAppResp to raft id `to` (slot to-1)
-  RAFT_HD void reply_app_resp(bool mask, int to, int term, int index) {
+  // put_reply of a MsgAppResp at the lane's term to raft id `to` (slot
+  // to-1), held
+  RAFT_HD void reply_app_resp(bool mask, int to, int index) {
     if (!(mask && to >= 1 && to <= V)) return;
-    const int j = to - 1;
-    out.rep_kind[j] = MSG_APP_RESP;
-    out.rep_term[j] = term;
-    out.rep_index[j] = index;
+    mid.hm = (mid.hm & ~(15u << HM_REP_CELL)) | (uint32_t)to << HM_REP_CELL;
+    stage[HV_REP_INDEX] = index;
   }
 
   RAFT_HD void handle_append_entries(bool mask, const Msg &m) {
     const bool stale = mask && m.index < L.committed;
-    reply_app_resp(stale, m.frm, L.term, L.committed);
+    reply_app_resp(stale, m.frm, L.committed);
     const bool live = mask && !stale;
     bool ok;
     const int lastnewi =
         maybe_append(live ? m.index : -1, m.log_term, m.commit, m.ent_term,
                      m.ent_type, m.ent_bytes, live ? m.n_ents : 0, ok);
-    reply_app_resp(live && ok, m.frm, L.term, lastnewi);
+    reply_app_resp(live && ok, m.frm, lastnewi);
     int hi, ht;
     find_conflict_by_term(imin(m.index, L.last), m.log_term, hi, ht);
     if (live && !ok && m.frm >= 1 && m.frm <= V) {
-      const int j = m.frm - 1;
-      out.rep_kind[j] = MSG_APP_RESP;
-      out.rep_term[j] = L.term;
-      out.rep_index[j] = m.index;
-      out.rep_reject[j] = true;
-      out.rep_reject_hint[j] = hi;
-      out.rep_log_term[j] = ht;
+      reply_app_resp(true, m.frm, m.index);
+      mid.hm |= 1u << HM_REP_REJ;
+      stage[HV_REP_HINT] = hi;
+      stage[HV_REP_LOG_TERM] = ht;
     }
   }
 
   RAFT_HD void handle_heartbeat(bool mask, const Msg &m) {
     commit_to(mask ? m.commit : 0);
-    if (mask && m.frm >= 1 && m.frm <= V) {
-      const int j = m.frm - 1;
-      out.hb_kind[j] = MSG_HEARTBEAT_RESP;
-      out.hb_term[j] = L.term;
-      out.hb_context[j] = m.context;
+    if (mask && m.frm >= 1 && m.frm <= V) {  // a MsgHeartbeatResp, held
+      mid.hm = (mid.hm & ~(15u << HM_HB_CELL)) | (uint32_t)m.frm << HM_HB_CELL;
+      stage[HV_HB_CONTEXT] = m.context;
     }
   }
 
@@ -1952,10 +2162,10 @@ struct Round {
     const bool stale = mask && sidx <= L.committed;
     const bool ff = mask && !stale && term_at(sidx) == sterm;
     commit_to(ff ? sidx : 0);
-    reply_app_resp(stale || ff, m.frm, L.term, L.committed);
+    reply_app_resp(stale || ff, m.frm, L.committed);
     const bool doit = mask && !stale && !ff && L.state == FOLLOWER;
     restore_snapshot(sidx, sterm, doit);
-    reply_app_resp(doit, m.frm, L.term, L.last);
+    reply_app_resp(doit, m.frm, L.last);
   }
 };
 
@@ -1974,17 +2184,25 @@ struct Sampler {  // metrics/device.py samp_index / samp_round of this lane
   int index, round;
 };
 
-// One round of lane `L` on its routed inbox `in` (mute cut applied) into
-// the cleared outbox `out`. round_ctr is the metrics round counter before
-// this round; ev gets this lane's metric deltas. tick: the chaos build's
-// tick mask (false: the clocks hold and no tick fires).
-RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops &ops,
-                              uint32_t cut, int flags, int lag,
-                              int round_ctr, Sampler &samp, const Fab &out,
-                              Events &ev, bool tick = true) {
-  Round rd(L, c, in, out);
+// One round of lane `L`, in two halves with a barrier of the block
+// between them (Mid). The read half runs the round on its routed inbox
+// `in` (mute cut applied) up to its last read of it, holding its outbox
+// writes in `mid` and the lane's staging column `stage`; ev gets this
+// lane's metric deltas. tick: the chaos build's tick mask (false: the
+// clocks hold and no tick fires).
+RAFT_HD void round_read(Lane &L, const Cfg &c, const InFab &in, uint32_t cut, int flags,
+                        Mid &mid, Col<int> stage, Events &ev, bool tick = true) {
+  mid.f = mid.sel = mid.hc = mid.hm = 0;
+#if RAFT_CHAOS
+  mid.wr = 0;
+#endif
+#if RAFT_DIET
+  mid.wlog = 0;
+  mid.winfl = 0;
+  mid.wread = 0;
+#endif
+  Round rd(L, c, mid, nullptr, stage);
   const bool *is_self = rd.is_self;
-  const bool metrics = flags & F_METRICS;
   RAFT_UNROLL
   for (int x = 0; x < kCounters; ++x) ev.v[x] = 0;
   ev.bucket = -1;
@@ -1992,7 +2210,8 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
 #if RAFT_LEASE
   ev.ack = 0;
 #endif
-  const int lead0 = L.lead, committed0 = L.committed;
+  mid.lead0 = L.lead;
+  mid.committed0 = L.committed;
 
   // ---- tick (raft.go:823-862) ----
   bool fire_hup = false, fire_beat = false, fire_cq = false;
@@ -2076,15 +2295,8 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
     const bool ping = (c.check_quorum || c.pre_vote) &&
                       ((low_rep && in.rep_kind[i] == MSG_APP) ||
                        (low_hb && in.hb_kind[i] == MSG_HEARTBEAT));
-    if (ping) {
-      out.rep_kind[i] = MSG_APP_RESP;
-      out.rep_term[i] = L.term;
-    }
-    if (low_vote && in.vote_kind[i] == MSG_PRE_VOTE) {
-      out.vresp_kind[i] = MSG_PRE_VOTE_RESP;
-      out.vresp_term[i] = L.term;
-      out.vresp_reject[i] = true;
-    }
+    if (ping) mid.hc |= 1u << (HC_PING + i);  // a MsgAppResp at the lane's term
+    if (low_vote && in.vote_kind[i] == MSG_PRE_VOTE) rd.hold_vote_resp(i, true, true, L.term);
     rep_live[i] = rep_p[i] && !low_rep;
     hb_live[i] = hb_p[i] && !low_hb;
     vote_live[i] = vote_p[i] && !low_vote && !lease_ignored[i];
@@ -2193,16 +2405,8 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
       const bool real_cell = grantable[i] && !is_pv[i] && i == gwin && any_real;
       const bool grant = (grantable[i] && is_pv[i]) || real_cell;
       real_grant = real_grant || real_cell;
-      const int resp_kind = is_pv[i] ? MSG_PRE_VOTE_RESP : MSG_VOTE_RESP;
-      if (grant) {
-        out.vresp_kind[i] = resp_kind;
-        out.vresp_term[i] = in.vote_term[i];
-      }
-      if (vreq_cell[i] && !grant) {
-        out.vresp_kind[i] = resp_kind;
-        out.vresp_term[i] = L.term;
-        out.vresp_reject[i] = true;
-      }
+      if (grant) rd.hold_vote_resp(i, is_pv[i], false, in.vote_term[i]);
+      if (vreq_cell[i] && !grant) rd.hold_vote_resp(i, is_pv[i], true, L.term);
     }
     if (real_grant) {
       L.vote = gwin + 1;
@@ -2286,10 +2490,8 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
     if (acc_cell[j] && advanced[j] && j + 1 == L.lead_transferee &&
-        L.pr_match[j] == L.last) {
-      out.vote_kind[j] = MSG_TIMEOUT_NOW;
-      out.vote_term[j] = L.term;
-    }
+        L.pr_match[j] == L.last)
+      mid.hc |= 1u << (HC_TON + j);  // a MsgTimeoutNow at the lane's term
   }
 
   // MsgHeartbeatResp cells (raft.go:1527-1561)
@@ -2358,6 +2560,7 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
       }
       new_ctx[t] = hit ? vc : L.rs_ctx[t];
       new_index[t] = hit ? vi : L.rs_index[t];
+      if (hit) rd.wrote_read(8 + t);
     }
     RAFT_UNROLL
     for (int t = 0; t < r; ++t) {
@@ -2374,12 +2577,12 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
     ev.v[C_READ_INDEX_SERVED] += n_put;
   }
 
-  // Msg(Pre)VoteResp cells -> poll (raft.go:1041-1049, 1647-1666)
-  bool pre_won, real_won;
+  // Msg(Pre)VoteResp cells -> poll (raft.go:1041-1049, 1647-1666): the
+  // inbox's last reads
+  bool any_vr = false;
   {
     const int my_resp = L.state == PRE_CANDIDATE ? MSG_PRE_VOTE_RESP : MSG_VOTE_RESP;
     const bool self_vr = self_p && in.self_kind[0] == my_resp && is_cand;
-    bool any_vr = false;
     RAFT_UNROLL
     for (int i = 0; i < V; ++i) {
       const bool live = vresp_p[i] && !(in.vresp_term[i] < L.term);
@@ -2389,11 +2592,31 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
       if (vr_all && rd.voter(i)) L.votes[i] = vr_rej ? REJECTED : GRANTED;
       any_vr = any_vr || vr_all;
     }
+  }
+  mid.f = (fire_hup ? MF_HUP : 0u) | (fire_beat ? MF_BEAT : 0u) | (fire_cq ? MF_CQ : 0u) |
+          (ton ? MF_TON : 0u) | (is_cand ? MF_CAND : 0u) | (any_vr ? MF_VR : 0u);
+}
+
+// The write half: the round on from its last read of the inbox, into the
+// lane's outbox `out` (cleared, but for the chaos build's kept cells), the
+// held writes first. round_ctr is the metrics round counter before this
+// round.
+RAFT_HD void round_write(Lane &L, const Cfg &c, const Ops &ops, int flags, int lag,
+                         int round_ctr, Sampler &samp, const Fab &out, Mid &mid,
+                         Col<int> stage, Events &ev) {
+  Round rd(L, c, mid, &out, stage);
+  const bool *is_self = rd.is_self;
+  const bool metrics = flags & F_METRICS;
+  const bool is_cand = mid.f & MF_CAND;
+  rd.flush_held();
+
+  bool pre_won, real_won;
+  {
     int votes[V];
     RAFT_UNROLL
     for (int i = 0; i < V; ++i) votes[i] = L.votes[i];
     const int res = rd.joint_vote(votes);
-    const bool tallied = any_vr && is_cand;
+    const bool tallied = (mid.f & MF_VR) && is_cand;
     const bool won = tallied && res == VOTE_WON;
     const bool lost = tallied && res == VOTE_LOST;
     pre_won = won && L.state == PRE_CANDIDATE;
@@ -2405,17 +2628,18 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
   }
 
   // ---- local inputs ----
+  const bool ton = mid.f & MF_TON;
   int ctype = c.pre_vote ? PRE_ELECTION : ELECTION;
   if (ton) ctype = TRANSFER;
   if (pre_won) ctype = ELECTION;
-  const bool hup_fired = rd.hup(fire_hup || ops.hup || ton || pre_won, ctype);
+  const bool hup_fired = rd.hup((mid.f & MF_HUP) || ops.hup || ton || pre_won, ctype);
   ev.v[C_ELECTIONS_STARTED] += hup_fired;
   ev.v[C_ELECTIONS_WON] += real_won;
 
   // CheckQuorum (raft.go:1231-1243)
-  is_leader = L.state == LEADER;
+  bool is_leader = L.state == LEADER;
   {
-    const bool cq = fire_cq && is_leader;
+    const bool cq = (mid.f & MF_CQ) && is_leader;
     int active[V];
     RAFT_UNROLL
     for (int j = 0; j < V; ++j)
@@ -2442,7 +2666,7 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
       }
     }
     const int beat_ctx = any_live ? L.ro_ctx[newest] : 0;
-    rd.bcast_heartbeat((fire_beat || ops.beat) && is_leader, beat_ctx);
+    rd.bcast_heartbeat(((mid.f & MF_BEAT) || ops.beat) && is_leader, beat_ctx);
   }
 
   // proposals (raft.go:1244-1302)
@@ -2503,6 +2727,7 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
       const bool t_cell = j == t_slot && t_ok;
       const bool t_ready = t_cell && L.pr_match[j] == L.last;
       if (t_ready) {
+        rd.touch<CH_VOTE>(j);
         out.vote_kind[j] = MSG_TIMEOUT_NOW;
         out.vote_term[j] = L.term;
       }
@@ -2536,6 +2761,7 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
     const bool can_enq = enq && any_free;
     if (can_enq) {
       const int q = first_free;
+      rd.wrote_read(q);
       L.ro_ctx[q] = ops.read_ctx;
       L.ro_from[q] = L.id;
       L.ro_index[q] = L.committed;
@@ -2549,6 +2775,7 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
     ev.v[C_READ_INDEX_SERVED] += imm_room;
     if (imm_room) {
       const int q = clampi(L.rs_count, 0, r - 1);
+      rd.wrote_read(8 + q);
       L.rs_ctx[q] = ops.read_ctx;
       L.rs_index[q] = L.committed;
       L.rs_count += 1;
@@ -2578,18 +2805,30 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
 #endif
 
   if (!metrics) return;
-  // ---- end-of-round measurement ----
+  // ---- end-of-round measurement: the messages the round wrote (in the
+  // chaos build a cell it did not write still holds the last outbox's) ----
+#if RAFT_CHAOS
+  const uint32_t unwritten = ~mid.wr;
+#else
+  const uint32_t unwritten = 0;
+#endif
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
-    ev.v[C_MSGS_APP] += out.rep_kind[j] == MSG_APP || out.rep_kind[j] == MSG_SNAP;
-    ev.v[C_MSGS_APP_RESP] += out.rep_kind[j] == MSG_APP_RESP;
-    ev.v[C_MSGS_HEARTBEAT] += out.hb_kind[j] == MSG_HEARTBEAT;
-    ev.v[C_MSGS_HEARTBEAT_RESP] += out.hb_kind[j] == MSG_HEARTBEAT_RESP;
-    ev.v[C_MSGS_VOTE] += out.vote_kind[j] != MSG_NONE;
-    ev.v[C_MSGS_VOTE_RESP] += out.vresp_kind[j] != MSG_NONE;
+    const int rk = (unwritten >> (8 * CH_REP + j)) & 1u ? (int)MSG_NONE : (int)out.rep_kind[j];
+    const int hk = (unwritten >> (8 * CH_HB + j)) & 1u ? (int)MSG_NONE : (int)out.hb_kind[j];
+    const bool vote =
+        !((unwritten >> (8 * CH_VOTE + j)) & 1u) && out.vote_kind[j] != MSG_NONE;
+    const bool vresp =
+        !((unwritten >> (8 * CH_VRESP + j)) & 1u) && out.vresp_kind[j] != MSG_NONE;
+    ev.v[C_MSGS_APP] += rk == MSG_APP || rk == MSG_SNAP;
+    ev.v[C_MSGS_APP_RESP] += rk == MSG_APP_RESP;
+    ev.v[C_MSGS_HEARTBEAT] += hk == MSG_HEARTBEAT;
+    ev.v[C_MSGS_HEARTBEAT_RESP] += hk == MSG_HEARTBEAT_RESP;
+    ev.v[C_MSGS_VOTE] += vote;
+    ev.v[C_MSGS_VOTE_RESP] += vresp;
   }
-  ev.v[C_LEADER_CHANGES] += L.lead != lead0 && L.lead != 0;
-  ev.v[C_COMMITS] += L.committed - committed0;
+  ev.v[C_LEADER_CHANGES] += L.lead != mid.lead0 && L.lead != 0;
+  ev.v[C_COMMITS] += L.committed - mid.committed0;
   // metrics.observe_commit_latency
   const bool done = samp.index > 0 && L.committed >= samp.index;
   if (done) {
@@ -2613,9 +2852,9 @@ RAFT_HD void fused_round_lane(Lane &L, const Cfg &c, const InFab &in, const Ops 
 namespace raft {
 
 // What a thread keeps across the rounds. The planes keep little here: at
-// the bench Shape a 96-lane block has 168 registers a thread (three blocks
-// an SM, registers allocated four warps a block), which the carry and the
-// round fill. The paged build reads what page-in saw again at page-out
+// the bench Shape a 96-lane block has 168 registers a thread (four blocks,
+// 12 warps, an SM: three warps on each quarter of the register file),
+// which the carry and the round fill. The paged build reads what page-in saw again at page-out
 // (the lane's input cursors and page-table row), the chaos build keeps
 // its facts of the launch in `cut` above the mute bits and in shared
 // memory (chaos_facts) and writes a probe column only when it records a
@@ -2913,63 +3152,38 @@ RAFT_HD void chaos_begin(const Args &a, const Block &B, long long i, int t, int 
   }
 }
 
-// end_round's duplicate redelivery: where the draw fires, cell j of the
-// outbox this round delivered (`prev`, untouched by the cuts) goes into
-// the empty cell j of the new outbox `out`, every field of the channel
-RAFT_HD void chaos_dup(const Args &a, const Block &B, const Fab &prev, const Fab &out,
-                       long long i, int t, int k) {
-  if (!(B.fact()[t] & FACT_DUP)) return;
+// end_round's duplicate redelivery, on the block's one fabric buffer,
+// after the write half: a peer cell the round did not write (Mid::wr)
+// still holds the lane's last outbox (the cells this round delivered,
+// untouched by the cuts). Where that is a message and the duplicate draw
+// fires, it stays, every field of the channel; every other such cell is
+// cleared.
+template <int CH>
+RAFT_HD void end_cell(const Fab &out, int j, bool dup, uint32_t seed, int rnd, uint32_t edge,
+                      int num) {
+  const int kind = CH == CH_REP ? out.rep_kind[j] : CH == CH_HB ? out.hb_kind[j]
+                 : CH == CH_VOTE ? out.vote_kind[j] : out.vresp_kind[j];
+  if (!(dup && kind != MSG_NONE && decide(seed, rnd, edge, SALT_DUP + CH, num)))
+    clear_cell<CH>(out, j);
+}
+
+RAFT_HD void chaos_end(const Args &a, const Block &B, const Fab &out, uint32_t wr, long long i,
+                       int t, int k) {
+  const bool dup = B.fact()[t] & FACT_DUP;
   const int rnd = B.chaos_sc()[SC_ROUND] + k;
   const uint32_t seed = (uint32_t)B.chaos_sc()[SC_SEED];
-  const int *row = knob(a, CH_dup_num) + i * V;
   const uint32_t e0 = (uint32_t)i * V;
-  int num[V];
-  RAFT_UNROLL
-  for (int j = 0; j < V; ++j) num[j] = row[j];
   RAFT_UNROLL
   for (int j = 0; j < V; ++j) {
-    const uint32_t edge = e0 + j;
-    if (prev.rep_kind[j] != MSG_NONE && out.rep_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 0, num[j])) {
-      out.rep_kind[j] = prev.rep_kind[j];
-      out.rep_term[j] = prev.rep_term[j];
-      out.rep_index[j] = prev.rep_index[j];
-      out.rep_log_term[j] = prev.rep_log_term[j];
-      out.rep_commit[j] = prev.rep_commit[j];
-      out.rep_reject[j] = prev.rep_reject[j];
-      out.rep_reject_hint[j] = prev.rep_reject_hint[j];
-      out.rep_n_ents[j] = prev.rep_n_ents[j];
-      RAFT_UNROLL
-      for (int e = 0; e < E; ++e) {
-        out.rep_ent_term[j][e] = prev.rep_ent_term[j][e];
-        out.rep_ent_type[j][e] = prev.rep_ent_type[j][e];
-        out.rep_ent_bytes[j][e] = prev.rep_ent_bytes[j][e];
-      }
-      out.rep_snap_index[j] = prev.rep_snap_index[j];
-      out.rep_snap_term[j] = prev.rep_snap_term[j];
-    }
-    if (prev.hb_kind[j] != MSG_NONE && out.hb_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 1, num[j])) {
-      out.hb_kind[j] = prev.hb_kind[j];
-      out.hb_term[j] = prev.hb_term[j];
-      out.hb_commit[j] = prev.hb_commit[j];
-      out.hb_context[j] = prev.hb_context[j];
-    }
-    if (prev.vote_kind[j] != MSG_NONE && out.vote_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 2, num[j])) {
-      out.vote_kind[j] = prev.vote_kind[j];
-      out.vote_term[j] = prev.vote_term[j];
-      out.vote_index[j] = prev.vote_index[j];
-      out.vote_log_term[j] = prev.vote_log_term[j];
-      out.vote_reject[j] = prev.vote_reject[j];
-      out.vote_context[j] = prev.vote_context[j];
-    }
-    if (prev.vresp_kind[j] != MSG_NONE && out.vresp_kind[j] == MSG_NONE &&
-        decide(seed, rnd, edge, SALT_DUP + 3, num[j])) {
-      out.vresp_kind[j] = prev.vresp_kind[j];
-      out.vresp_term[j] = prev.vresp_term[j];
-      out.vresp_reject[j] = prev.vresp_reject[j];
-    }
+    const uint32_t todo = ~wr >> j;
+    if (!((todo >> (8 * CH_REP) | todo >> (8 * CH_HB) | todo >> (8 * CH_VOTE) |
+           todo >> (8 * CH_VRESP)) & 1u))
+      continue;
+    const int num = dup ? knob(a, CH_dup_num)[i * V + j] : 0;
+    if ((todo >> (8 * CH_REP)) & 1u) end_cell<CH_REP>(out, j, dup, seed, rnd, e0 + j, num);
+    if ((todo >> (8 * CH_HB)) & 1u) end_cell<CH_HB>(out, j, dup, seed, rnd, e0 + j, num);
+    if ((todo >> (8 * CH_VOTE)) & 1u) end_cell<CH_VOTE>(out, j, dup, seed, rnd, e0 + j, num);
+    if ((todo >> (8 * CH_VRESP)) & 1u) end_cell<CH_VRESP>(out, j, dup, seed, rnd, e0 + j, num);
   }
 }
 
@@ -3022,11 +3236,11 @@ RAFT_HD void zero_row(const Args &a, long long i) {
 #endif
 
 // lane i (thread t of the block): its carry into registers and its rings'
-// columns, its outbox row into fabric buffer 0, its config, sampler and
-// mute bits
+// columns, its outbox row into the fabric, its config, sampler and mute
+// bits
 RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread &th) {
   load_lane(th.L, a, B, i, t);
-  fab_rows(a, B, i, t, 0, true);
+  fab_rows(a, B, i, t, true);
   load_cfg(th.c, a, i);
   th.samp.index = th.samp.round = 0;
   if (a.flags & F_METRICS) {
@@ -3055,16 +3269,18 @@ RAFT_HD void lane_load(const Args &a, const Block &B, long long i, int t, Thread
 #endif
 }
 
-// round k of lane i (thread t): inbox in buffer k % 2, outbox in the other
-RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t, Thread &th,
-                        int round_ctr, Events &ev) {
-  const int src = k & 1;
-  const Fab in = inbox(B, src, t);
-  const Fab out = outbox(B, src ^ 1, t);
+// Round k of lane i (thread t) on the block's one fabric buffer: its read
+// half (lane_read) reads its inbox, the senders' cells of their last
+// outboxes, and holds its outbox writes (mid); after a barrier of the block
+// (every lane has read its inbox) its write half (lane_write) writes its
+// outbox into its own cells.
+RAFT_HD void lane_read(const Args &a, const Block &B, int k, long long i, int t, Thread &th,
+                       Mid &mid, Events &ev) {
+  const Fab in = inbox(B, t);
   RAFT_LAP_START(lap_c);
 #if RAFT_CHAOS
   // the cuts as masks read through the inbox: the senders' cells stay
-  // as sent, for their duplicate redelivery below
+  // as sent, for their duplicate redelivery (chaos_end)
   uint32_t cut[4];
   bool crashed, tick;
   chaos_begin(a, B, i, t, k, th, cut, crashed, tick);
@@ -3076,14 +3292,29 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   inb.vote_kind = KindCol{in.vote_kind.p, in.vote_kind.s, cut[2]};
   inb.vresp_kind = KindCol{in.vresp_kind.p, in.vresp_kind.s, cut[3]};
   inb.self_kind = KindCol{in.self_kind.p, in.self_kind.s, crashed ? 1u : 0u};
+  round_read(th.L, th.c, inb, th.cut, a.flags, mid, B.stage(t), ev, tick);
+  mid.f |= (tick ? MF_TICK : 0u) | (crashed ? MF_DOWN : 0u);
 #else
-  // the mute cut, at the read: only this lane reads its inbound cells
+  // the mute cut, at the read: only this lane reads its inbound cells,
+  // and every sender rewrites or clears its cells in its write half
   RAFT_UNROLL
   for (int j = 0; j < V; ++j)
     if ((th.cut >> j) & 1u)
       in.rep_kind[j] = in.hb_kind[j] = in.vote_kind[j] = in.vresp_kind[j] = MSG_NONE;
+  round_read(th.L, th.c, in, th.cut, a.flags, mid, B.stage(t), ev);
 #endif
+  RAFT_LAP(th, LAP_ROUND, lap_c);
+}
+
+RAFT_HD void lane_write(const Args &a, const Block &B, int k, long long i, int t, Thread &th,
+                        Mid &mid, int round_ctr, Events &ev) {
+  const Fab out = outbox(B, t);
+  RAFT_LAP_START(lap_c);
+#if RAFT_CHAOS
+  clear_cell<CH_SELF>(out, 0);  // the peer cells at their first write, or after (chaos_end)
+#else
   clear_fab(out);
+#endif
   // the ops are read when a round applies them (not held across rounds)
   Ops ops;
   if ((a.flags & F_OPS) && (k == 0 || !(a.flags & F_OPS_ROUND0)))
@@ -3091,41 +3322,34 @@ RAFT_HD void lane_round(const Args &a, const Block &B, int k, long long i, int t
   else
     clear_ops(ops);
 #if RAFT_CHAOS
-  if (crashed) clear_ops(ops);  // a down lane takes no host ops
-  fused_round_lane(th.L, th.c, inb, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
-                   ev, tick);
+  if (mid.f & MF_DOWN) clear_ops(ops);  // a down lane takes no host ops
+#endif
+  round_write(th.L, th.c, ops, a.flags, a.lag, round_ctr + k, th.samp, out, mid, B.stage(t), ev);
 #if RAFT_LEASE
   // the lease tail on the round's final state (the metrics block after it
   // in fused.py reads no lease column): a ticking round the lane skipped
-  // is skew
-  lane_lease(a, i, th, ev.ack, (a.flags & F_TICK) && !tick);
+  // is skew (the chaos build's tick mask)
+  lane_lease(a, i, th, ev.ack, RAFT_CHAOS && (a.flags & F_TICK) && !(mid.f & MF_TICK));
 #endif
   RAFT_LAP(th, LAP_ROUND, lap_c);
-  chaos_dup(a, B, outbox(B, src, t), out, i, t, k);
+#if RAFT_CHAOS
+  chaos_end(a, B, out, mid.wr, i, t, k);
   probe_flag(B, k, t, th.L);
   RAFT_LAP(th, LAP_DUP, lap_c);
-#else
-  fused_round_lane(th.L, th.c, in, ops, th.cut, a.flags, a.lag, round_ctr + k, th.samp, out,
-                   ev);
-#if RAFT_LEASE
-  lane_lease(a, i, th, ev.ack, false);
-#endif
-  RAFT_LAP(th, LAP_ROUND, lap_c);
 #endif
   // the carry crosses the storage boundary between rounds
-  roundtrip_lane(th.L, out);
+  roundtrip_lane(th.L, out, mid);
 #if RAFT_LEASE
   lease_roundtrip(th);
 #endif
   RAFT_LAP(th, LAP_BOUNDARY, lap_c);
 }
 
-// after the rounds: lane i's carry, its last outbox (fabric buffer b) and
-// its sampler to device memory; only this thread wrote any of them
-RAFT_HD void lane_store(const Args &a, const Block &B, int b, long long i, int t,
-                        const Thread &th) {
+// after the rounds: lane i's carry, its last outbox and its sampler to
+// device memory; only this thread wrote any of them
+RAFT_HD void lane_store(const Args &a, const Block &B, long long i, int t, const Thread &th) {
   store_lane(th.L, a, i);
-  fab_rows(a, B, i, t, b, false);
+  fab_rows(a, B, i, t, false);
   if (a.flags & F_METRICS) {
     ((int *)a.p[P_SAMP_INDEX_OUT])[i] = th.samp.index;
     ((int *)a.p[P_SAMP_ROUND_OUT])[i] = th.samp.round;
@@ -3714,14 +3938,16 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
 #endif
   stamp_sync(srow, ST_PAGE_IN, t);
   const int round_ctr = metrics ? *(const int *)a.p[P_ROUND_CTR] : 0;
-  __syncthreads();  // every lane's outbox is in buffer 0
+  __syncthreads();  // every lane's outbox is in the fabric
   stamp(srow, ST_LOADED, t);
   for (int k = 0; k < a.kc; ++k) {
     Events ev;
-    lane_round(a, B, k, i, t, th, round_ctr, ev);
+    Mid mid;
+    lane_read(a, B, k, i, t, th, mid, ev);
+    __syncthreads();  // every inbox is read: each lane's cells are its own to write
+    lane_write(a, B, k, i, t, th, mid, round_ctr, ev);
     if (metrics) add_events(ev, acc_row(B, k), t, cta);
-    // this round's outbox and sums are complete, and every read of its
-    // inbox (the next round's outbox) is done
+    // this round's outbox (the next round's inboxes) and sums are complete
     __syncthreads();
 #if RAFT_CHAOS
     // the probe reads its group's flags; once every lane has read them and
@@ -3737,7 +3963,7 @@ __global__ void __launch_bounds__(S, kBlocksPerSm) round_kernel(const Args a) {
 #endif
     stamp(srow, kStampSlots + k, t);
   }
-  lane_store(a, B, a.kc & 1, i, t, th);  // the last round wrote buffer kc % 2
+  lane_store(a, B, i, t, th);
   stamp_sync(srow, ST_STORE, t);
 #if RAFT_PAGED
   // after the store, so that the carry's registers are free for the
@@ -3822,6 +4048,8 @@ int round_host(const Args &a, int cta) {
   const int bps = RAFT_PAGED ? a.bps : 1;
   std::vector<std::vector<Bits<16>>> bufs(bps, std::vector<Bits<16>>((Block::bytes + 15) / 16));
   std::vector<Thread> th((std::size_t)bps * cta);
+  std::vector<Mid> mid(cta);  // a round's lanes between its halves
+  std::vector<Events> ev(cta);
   for (long long blk0 = 0; blk0 < n_blocks; blk0 += bps) {
     for (int j = 0; j < bps; ++j) {
       const long long blk = blk0 + j;
@@ -3836,13 +4064,14 @@ int round_host(const Args &a, int cta) {
       }
       for (int k = 0; k < a.kc; ++k) {
         int *acc = acc_row(B, k);
+        // every lane's read half, then (the block's barrier) every write half
+        for (int t = 0; t < cta; ++t) lane_read(a, B, k, blk * cta + t, t, tb[t], mid[t], ev[t]);
         for (int t = 0; t < cta; ++t) {
-          Events ev;
-          lane_round(a, B, k, blk * cta + t, t, tb[t], round_ctr, ev);
+          lane_write(a, B, k, blk * cta + t, t, tb[t], mid[t], round_ctr, ev[t]);
           if (!metrics) continue;
-          for (int x = 0; x < kCounters; ++x) acc[x] += ev.v[x];
-          if (ev.bucket >= 0) acc[C_HIST0 + ev.bucket] += 1;
-          acc[C_LAT_SUM] += ev.lat;
+          for (int x = 0; x < kCounters; ++x) acc[x] += ev[t].v[x];
+          if (ev[t].bucket >= 0) acc[C_HIST0 + ev[t].bucket] += 1;
+          acc[C_LAT_SUM] += ev[t].lat;
         }
 #if RAFT_CHAOS
         for (int t = 0; t < cta; ++t) {
@@ -3860,7 +4089,7 @@ int round_host(const Args &a, int cta) {
     for (int j = 0; j < bps; ++j) {
       const Block B{(unsigned char *)bufs[j].data()};
       for (int t = 0; t < cta; ++t)
-        lane_store(a, B, a.kc & 1, (blk0 + j) * cta + t, t, th[(std::size_t)j * cta + t]);
+        lane_store(a, B, (blk0 + j) * cta + t, t, th[(std::size_t)j * cta + t]);
     }
 #if RAFT_PAGED
     // page_out_block over the segment: its barriers and scans as loops

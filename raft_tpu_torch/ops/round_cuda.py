@@ -113,6 +113,9 @@ PART_USED = 25  # csrc/round.cu kPartUsed
 CHAOS_PART = 2  # csrc/round.cu kChaosPart: the recount slots of the chaos build
 MAX_CHAOS_ROUNDS = 64  # csrc/round.cu kMaxChaosRounds: rounds a chaos launch takes
 SCAN_SLOTS = MAX_CTA // 32 + 4  # csrc/round.cu kScanSlots: warp totals, id, segment
+# csrc/round.cu kStage - V: a lane's staging ints of its held writes beside
+# the vote responses' V terms
+STAGE_INTS = 4
 
 _P = ctypes.c_void_p
 _ROUND_ARGS = [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
@@ -374,12 +377,13 @@ def target(d: dict, cta: int, diet: bool = False, plan=None, chaos: bool = False
 def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> int:
     """Shared memory of one CUDA block of `cta` lanes at Shape d
     (csrc/round.cu Block): with S = stride(cta), the rings (but THROUGH) at
-    stride S, two fabric buffers at stride S + 1, two partials rows (with
-    the chaos build's two recount slots), in the paged build one row of
-    warp totals and four ints of the segment barrier (SCAN_SLOTS), and in
-    the chaos build one probe-flag byte a lane, its facts of the launch (a
-    word a lane, the probe's baseline a lane, and four scalar ints); each
-    region padded to 16 bytes."""
+    stride S, the one fabric buffer at stride S + 1, the staging columns of
+    a round's held outbox writes (STAGE_INTS + v int32 a lane) at stride S,
+    two partials rows (with the chaos build's two recount slots), in the
+    paged build one row of warp totals and four ints of the segment
+    barrier (SCAN_SLOTS), and in the chaos build one probe-flag byte a
+    lane, its facts of the launch (a word a lane, the probe's baseline a
+    lane, and four scalar ints); each region padded to 16 bytes."""
     v, w, e, f, r = (d[k] for k in "vwefr")
     elems = {"LANE": 1, "PEER": v, "WIN": w, "INFL": v * f, "READ": r,
              "READ_PEER": r * v, "ENT": v * e}
@@ -396,8 +400,9 @@ def smem_bytes(d: dict, cta: int, paged: bool = False, chaos: bool = False) -> i
     sf = sr + 1
     rings = pad(4 * count("STATE", _RINGS, 4) * sr) + pad(count("STATE", _RINGS, 1) * sr)
     fab = pad(4 * count("FABRIC", elems, 4) * sf) + pad(count("FABRIC", elems, 1) * sf)
+    stage = pad(4 * (STAGE_INTS + v) * sr)
     acc = pad(4 * (PART_USED + (CHAOS_PART if chaos else 0)))
-    return (rings + 2 * fab + 2 * acc + (pad(4 * SCAN_SLOTS) if paged else 0)
+    return (rings + fab + stage + 2 * acc + (pad(4 * SCAN_SLOTS) if paged else 0)
             + (pad(sr) + 2 * pad(4 * sr) + 16 if chaos else 0))
 
 

@@ -119,7 +119,7 @@ def test_tile_helpers():
     assert plr.default_tile(n, v) == 3072
     assert plr.default_tile(12, 3) == 12
     assert plr.default_tile(65536 * 3, 3) == 3072  # the bench block
-    assert rc.cta_lanes(3072, 3) == rc.CTA_TARGET == 96  # 3 blocks per SM on the H100
+    assert rc.cta_lanes(3072, 3) == rc.CTA_TARGET == 96  # 4 blocks per SM on the H100
     assert rc.cta_lanes(6, 3) == 6
     assert rc.cta_lanes(3 * 1021, 3) == 3  # 1021 is prime
     assert all(rc.cta_lanes(t, 5) % 5 == 0 for t in (5, 10, 640, 5 * 512))
@@ -274,13 +274,14 @@ def test_cta_lanes_fit_shared_memory():
     assert rc.smem_bytes(big, cta + 8) > rc.MAX_SMEM or (8 * 1024) % (cta + 8)
     bench = dict(v=3, w=16, e=2, f=2, r=2)
     assert rc.cta_lanes(3072, 3, bench) == rc.cta_lanes(3072, 3) == rc.CTA_TARGET
-    c = tfused.FusedCluster(8, 8, shape=Shape(n_lanes=64, max_peers=8, log_window=64,
-                                              max_msg_entries=8, max_inflight=8,
-                                              max_read_index=8), device="cpu")
+    c = tfused.FusedCluster(12, 8, shape=Shape(n_lanes=96, max_peers=8, log_window=64,
+                                               max_msg_entries=8, max_inflight=8,
+                                               max_read_index=8), device="cpu")
     m = c.metrics
+    assert rc.smem_bytes(big, 96) > rc.MAX_SMEM
     with pytest.raises(ValueError, match="shared memory"):
         rc.pack(c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round),
-                m.round_ctr, v=8, kc=1, cta=64, apply_ops=True, ops_round0_only=True,
+                m.round_ctr, v=8, kc=1, cta=96, apply_ops=True, ops_round0_only=True,
                 do_tick=True, auto_propose=False, auto_compact_lag=None)
 
 
@@ -452,6 +453,22 @@ def test_stamp_twin_takes_one_more_pointer(pack_args):
     assert len(ptrs) == n_ptrs + 1 and ptrs[-1] == buf.data_ptr()
     with pytest.raises(ValueError, match="stamps must have shape"):
         rc.pack(*args, stamps=buf[:, 1:].contiguous(), **kw)
+
+
+def test_wave_facts_of_a_launch_that_outgrows_the_card():
+    """chip_smoke.wave_facts on a stamp table's start and end times and SM
+    ids: SM 0 holds three blocks at once and takes a fourth after one of
+    them ends (a block that starts as another ends takes its slot), SM 1
+    one block, which ends first; late_blocks counts the blocks that
+    started after that."""
+    import chip_smoke
+
+    start = np.array([0, 0, 1, 10, 0])
+    end = np.array([10, 12, 11, 20, 9])
+    smid = np.array([0, 0, 0, 0, 1])
+    assert chip_smoke.wave_facts(start, end, smid) == dict(late_blocks=1, max_blocks_an_sm=3)
+    assert chip_smoke.wave_facts(start[:3], end[:3], smid[:3]) == dict(
+        late_blocks=0, max_blocks_an_sm=3)
 
 
 def test_pack_refuses_a_chaos_launch_past_64_rounds():

@@ -38,7 +38,8 @@ import pytest
 import torch
 
 from raft_tpu_torch import build, interop
-from raft_tpu_torch.chaos.device import NEVER, probability
+from raft_tpu_torch.chaos import device as chmod
+from raft_tpu_torch.chaos.device import NEVER, P_ONE, probability
 from raft_tpu_torch.config import Shape
 from raft_tpu_torch.ops import fused as tfused
 from raft_tpu_torch.ops.lease import EPOCH_WRAP, LEASE_STATE_FIELDS
@@ -46,6 +47,7 @@ from raft_tpu_torch.ops import paged as pgmod
 from raft_tpu_torch.ops import pallas_round as plr
 from raft_tpu_torch.ops import round_cuda as rc
 from raft_tpu_torch.state import ERR_DIET_OVERFLOW, ERR_PAGE_EXHAUSTED, is_packed
+from raft_tpu_torch.types import MessageType as MT
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -192,6 +194,133 @@ def _outputs(res):
         else:  # the PagedLog of a paged launch
             out += [("paged." + n, x) for n, x in zip(rc.PAGED_LEAVES, interop.to_numpy_leaves(extra))]
     return out
+
+
+def _launch_both(lib, c, ops, what, **kw):
+    """One launch of the host build `lib` and of round_kernel_ref on the
+    carry of cluster c; every output leaf equal; returns the plain
+    version's outputs."""
+    m = c.metrics
+    args = (c.state, c.fab, ops, c.mute, (m.samp_index, m.samp_round), m.round_ctr)
+    want = plr.round_kernel_ref(*args, **kw)
+    ptrs, dims, flags, lag, got = rc.pack(*args, **kw)
+    arr, nptr, cdims = rc.as_c_args(ptrs, dims)
+    assert lib.raft_round_host(arr, nptr, cdims, flags, lag) == 0
+    for (name, a), (_, b) in zip(_outputs(want), _outputs(got), strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b), (what, name)
+    return want
+
+
+def _advance(c, want, kc):
+    """c's carry, metrics and chaos state after a launch whose outputs are
+    `want`."""
+    c.state, c.fab = want[0], want[1]
+    c.metrics = plr.fold_partials(c.metrics, want[2], want[3], kc)
+    if c.chaos is not None:
+        c.chaos = plr.fold_chaos(c.chaos, want[4], want[3], kc, True)
+
+
+@pytest.mark.parametrize("diet", [False, True], ids=["slim", "diet"])
+def test_every_lane_reads_and_rewrites_its_cells(host_lib, diet):
+    """The block's one fabric buffer holds each lane's inbox and outbox: a
+    round whose every lane reads its inbound cells and rewrites its own.
+    Every lane of a fresh PreVote cluster campaigns at once, so in the
+    next round each grants its peers' pre-votes with responses that copy
+    the request's term (in.vote_term) while its peers read its requests;
+    then the real votes, each candidate rejecting the others. The four
+    groups share one 12-lane block, a group at each position in it; the
+    launches at K = 1, 1 and 3 equal round_kernel_ref's on every leaf."""
+    v = 3
+    lib = host_lib(v, BASE, diet)
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v), device="cpu", diet=diet,
+                            pre_vote=True)
+    kw = dict(v=v, cta=n, apply_ops=True, ops_round0_only=True, do_tick=False,
+              auto_propose=False, auto_compact_lag=2)
+    want = _launch_both(lib, c, c.ops(hup={i: True for i in range(n)}), "hup", kc=1, **kw)
+    peers = ~np.eye(v, dtype=bool)[np.arange(n) % v]  # cell j of lane i: a peer's
+    assert (want[1].vote.kind.numpy()[peers] == MT.MSG_PRE_VOTE).all()
+    _advance(c, want, 1)
+    want = _launch_both(lib, c, c._no_ops, "grants", kc=1, **kw)
+    fab = want[1].vresp
+    assert (fab.kind.numpy()[peers] == MT.MSG_PRE_VOTE_RESP).all()
+    assert (fab.term.to(torch.int32).numpy()[peers] == 1).all() and not fab.reject.any()
+    _advance(c, want, 1)
+    want = _launch_both(lib, c, c._no_ops, "votes", kc=3, **kw)
+    assert (want[0].term.to(torch.int32) == 1).all()
+
+
+def test_chaos_duplicate_keeps_only_an_empty_cell(host_lib):
+    """The chaos build's duplicates on the one fabric buffer: with the
+    duplicate draw certain on every edge of two groups, a cell that its
+    sender left empty this round holds the last round's message (the old
+    cell stays), and one that it rewrote holds what it wrote (the new
+    cell stays). Launches at K = 1 and 3, proposing and not, equal
+    round_kernel_ref(chaos=)'s; each K = 1 launch is also held against the
+    same launch without duplicates, and both kinds of cell occur."""
+    v, wefr = CHAOS_CASE
+    lib = host_lib(v, wefr, False, None, True)
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v, wefr), device="cpu", chaos=True)
+    c.run(12, **RUN)
+    dup = np.where((np.arange(n) < 2 * v)[:, None], P_ONE, 0).repeat(v, 1).astype(np.int32)
+    c.set_chaos(dup_num=dup)
+    faulty = np.arange(n)[:, None] < 2 * v
+    kept = rewritten = 0
+    for r in range(6):
+        kc = 1 if r % 2 == 0 else 3
+        kw = dict(v=v, kc=kc, cta=2 * v, apply_ops=True, ops_round0_only=True, do_tick=True,
+                  auto_propose=r % 4 != 2, auto_compact_lag=2)
+        want = _launch_both(lib, c, c._no_ops, r, chaos=c.chaos, **kw)
+        if kc == 1:
+            m = c.metrics
+            args = (c.state, c.fab, c._no_ops, c.mute, (m.samp_index, m.samp_round),
+                    m.round_ctr)
+            quiet = plr.round_kernel_ref(
+                *args, chaos=chmod.with_columns(c.chaos, dup_num=np.zeros_like(dup)), **kw)
+            for ch in tfused.CHANNELS:
+                old, new, own = (getattr(f, ch) for f in (c.fab, want[1], quiet[1]))
+                sent = old.kind.numpy() != MT.MSG_NONE
+                empty = sent & (own.kind.numpy() == MT.MSG_NONE) & faulty
+                wrote = sent & (own.kind.numpy() != MT.MSG_NONE) & faulty
+                for fld in dataclasses.fields(old):
+                    a, b, q = (getattr(x, fld.name).numpy() for x in (old, new, own))
+                    assert np.array_equal(b[empty], a[empty]), (r, ch, fld.name)
+                    assert np.array_equal(b[wrote], q[wrote]), (r, ch, fld.name)
+                kept += int(empty.sum())
+                rewritten += int(wrote.sum())
+        _advance(c, want, kc)
+    assert kept and rewritten, (kept, rewritten)
+
+
+def test_diet_boundary_clamps_what_a_round_wrote(host_lib):
+    """The diet build's boundary clamps only the ring slots and outbox
+    cells a round wrote (the rest of the carry is in its packed range when
+    the round starts): the first two groups' leaders propose 40,000-byte
+    entries, over log_bytes' int16 range, which the round writes into a
+    ring slot and sends in an outbox cell, beside the slots and cells it
+    leaves alone. The clamped values and the ERR_DIET_OVERFLOW bits equal
+    round_kernel_ref's, at K = 1 and then 3."""
+    v = 3
+    lib = host_lib(v, BASE, True)
+    n = G * v
+    c = tfused.FusedCluster(G, v, seed=7, shape=_shape(n, v), device="cpu", diet=True)
+    c.run(24, **RUN)  # every group elected
+    lead = c.leader_lanes()
+    big = lead[lead < 2 * v]
+    assert len(big) == 2
+    kw = dict(v=v, cta=2 * v, apply_ops=True, ops_round0_only=True, do_tick=True,
+              auto_propose=False, auto_compact_lag=2)
+    ops = c.ops(prop_n={int(i): 1 for i in big}, prop_bytes=40_000)
+    want = _launch_both(lib, c, ops, "propose", kc=1, **kw)
+    over = (want[0].error_bits & ERR_DIET_OVERFLOW).numpy() != 0
+    assert over[big].all() and over.sum() == len(big)
+    assert ((want[0].log_bytes.numpy() == 32767).sum(1) == np.isin(np.arange(n), big)).all()
+    sent = want[1].rep.ent_bytes.numpy() == 32767
+    assert sent[big].any(axis=(1, 2)).all() and sent.any(axis=(1, 2)).sum() == len(big)
+    _advance(c, want, 1)
+    want = _launch_both(lib, c, c._no_ops, "replicate", kc=3, **kw)
+    assert ((want[0].log_bytes.numpy() == 32767).sum(1) >= 1).sum() >= 2 * v
 
 
 @pytest.mark.parametrize("v,cfg,wefr", CASES)
